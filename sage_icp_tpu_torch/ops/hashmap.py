@@ -1,0 +1,360 @@
+"""Semantic voxel-hash local map: a fixed-capacity open-addressing table
+held in device tensors, the same layout and semantics as the JAX
+reference package's map (and, through it, the reference's
+tsl::robin_map<Voxel, VoxelBlock>).
+
+    keys:      int32 (C, 3)     voxel coordinate of each slot
+    counts:    int32 (C,)       live points in the slot's block (0 = free)
+    points:    int16 (C, 4, K)  PLANAR quantized block [x | y | z | label]
+    first_pts: f32   (C, 3)     each block's first point, world frame
+
+Points are stored as int16 voxel-local offsets (full scale = one voxel).
+Collisions use triangular probing over probe_depth slots; a new voxel
+claims a slot in scatter-min rounds (lowest row id wins a race). Every
+drop is counted in InsertStats.
+
+Retention policy (VoxelBlock::AddPoint), applied in scan order per voxel
+by ops.policy_kernel.apply_policy:
+  count < basic -> append; label 0 -> drop; basic class -> overwrite the
+  first stored label-0 point; critical class -> append while count < K,
+  else overwrite the first stored label-0 point.
+
+Updates are functional, like the reference: insert and remove_far return
+new tensors and leave the input state untouched. The one large copy per
+frame is the (C, 4, K) block buffer (42 MB at the city preset, tens of
+microseconds on the card).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from sage_icp_tpu_torch.ops import policy_kernel
+from sage_icp_tpu_torch.ops.scan import INVALID_COORD, SORT_SENTINEL, trunc_div
+
+DEFAULT_PROBE_DEPTH = 16
+
+# Never-used slot key: no live voxel coordinate can equal it.
+EMPTY_KEY = -(1 << 20)
+
+# int16 full scale = one voxel size.
+QSCALE = 32767.0
+
+# Slot positions are part of a saved map; bump when hash_keys changes.
+HASH_LAYOUT_VERSION = 3
+
+_U32 = 0xFFFFFFFF
+_I32_MAX = 2**31 - 1
+
+
+class InsertStats(NamedTuple):
+    """Per-frame drop counters (0-dim int32): voxels beyond the unique
+    capacity, new voxels whose probe window was full, and points beyond
+    max_incoming_per_voxel in one voxel."""
+
+    unique_overflow: torch.Tensor
+    claim_failures: torch.Tensor
+    incoming_truncated: torch.Tensor
+
+
+class MapState(NamedTuple):
+    keys: torch.Tensor  # int32 (C, 3)
+    counts: torch.Tensor  # int32 (C,)
+    points: torch.Tensor  # int16 (C, 4, K) planar quantized blocks
+    first_pts: torch.Tensor  # f32 (C, 3)
+
+    @property
+    def capacity(self) -> int:
+        return self.counts.shape[0]
+
+    @property
+    def points_per_voxel(self) -> int:
+        return self.points.shape[2]
+
+
+def create(capacity: int, points_per_voxel: int, device=None, dtype=torch.float32) -> MapState:
+    if capacity <= 0 or capacity & (capacity - 1):
+        raise ValueError(f"map capacity {capacity} is not a power of two")
+    return MapState(
+        keys=torch.full((capacity, 3), EMPTY_KEY, dtype=torch.int32, device=device),
+        counts=torch.zeros((capacity,), dtype=torch.int32, device=device),
+        points=torch.zeros((capacity, 4, points_per_voxel), dtype=torch.int16, device=device),
+        first_pts=torch.full((capacity, 3), INVALID_COORD, dtype=dtype, device=device),
+    )
+
+
+def set_rows(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor, write: torch.Tensor) -> torch.Tensor:
+    """Functional dst.at[idx].set(src) for the rows where `write` holds;
+    the others are dropped (they land in a spare row that is cut off)."""
+    n = dst.shape[0]
+    out = torch.cat([dst, dst[:1]])
+    out[torch.where(write, idx, n).long()] = src
+    return out[:n]
+
+
+def quantize_points(points: torch.Tensor, vkeys: torch.Tensor, voxel_size) -> torch.Tensor:
+    """(…, 4) f32 world xyz+label -> (…, 4) int16 voxel-local + label.
+    Rounds half to even (torch.round, like jnp.round)."""
+    local = points[..., :3] - vkeys.to(points.dtype) * voxel_size
+    q = torch.clamp(torch.round(local * (QSCALE / voxel_size)), -QSCALE, QSCALE).to(torch.int16)
+    return torch.cat([q, points[..., 3:4].to(torch.int16)], dim=-1)
+
+
+def dequantize_blocks(stored: torch.Tensor, vkeys: torch.Tensor, voxel_size, dtype=torch.float32):
+    """(…, 4, K) int16 planes -> (…, K, 4) f32 world points."""
+    xyz = stored[..., :3, :].to(dtype) * (voxel_size / QSCALE) + vkeys[..., :, None].to(dtype) * voxel_size
+    lab = stored[..., 3:4, :].to(dtype)
+    return torch.movedim(torch.cat([xyz, lab], dim=-2), -2, -1)
+
+
+def probe_offset(d):
+    """Triangular probe offset of round d: 0, 1, 3, 6, 10, ..."""
+    return (d * (d + 1)) // 2
+
+
+def _mul_u32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """(h * c) mod 2**32 for int64 h in [0, 2**32), without overflowing
+    int64: the constant is split into 16-bit halves."""
+    lo = h * (c & 0xFFFF)
+    hi = ((h * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def hash_keys(keys: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Spatial hash x*73856093 ^ y*19349663 ^ z*83492791 in uint32 with
+    wraparound, then Fibonacci mixing (multiply by 2**32/phi, keep the
+    high bits). uint32 arithmetic is emulated in int64 masked to 32 bits.
+    (…, 3) int32 -> (…,) int32 slot."""
+    k = keys.to(torch.int64) & _U32
+    h = _mul_u32(k[..., 0], 73856093) ^ _mul_u32(k[..., 1], 19349663) ^ _mul_u32(k[..., 2], 83492791)
+    bits = int(capacity).bit_length() - 1
+    return (_mul_u32(h, 2654435769) >> (32 - bits)).to(torch.int32)
+
+
+def lookup(state: MapState, query_keys: torch.Tensor, probe_depth: int = DEFAULT_PROBE_DEPTH) -> torch.Tensor:
+    """Slot of each voxel key (…, 3), or -1 when absent."""
+    cap = state.capacity
+    h = hash_keys(query_keys, cap)
+    offs = probe_offset(torch.arange(probe_depth, dtype=torch.int32, device=h.device))
+    slots = (h[..., None] + offs) & (cap - 1)  # (…, D)
+    cand = state.keys[slots.long()]  # (…, D, 3)
+    match = torch.all(cand == query_keys[..., None, :], dim=-1)
+    first = torch.argmax(match.to(torch.int8), dim=-1, keepdim=True)
+    slot = torch.gather(slots, -1, first)[..., 0]
+    return torch.where(match.any(dim=-1), slot, -1)
+
+
+def _unique_voxels_of_points(points: torch.Tensor, valid: torch.Tensor, voxel_size):
+    """Sort points by voxel (stable: scan order within a voxel survives).
+    Returns (points_sorted (N,4), voxel_keys_sorted (N,3), head (N,),
+    valid_sorted (N,))."""
+    v = trunc_div(points[:, :3], voxel_size)
+    vmin = torch.where(valid[:, None], v, 2**20).amin(dim=0)
+    vo = torch.clamp(v - vmin, 0, 4095).to(torch.int64)  # 12 bits/axis
+    key = (vo[:, 0] << 32) | (vo[:, 1] * 4096 + vo[:, 2])
+    key = torch.where(valid, key, SORT_SENTINEL)
+    skey, order = torch.sort(key, stable=True)
+    pts_sorted = points[order]
+    head = torch.ones_like(valid)
+    head[1:] = skey[1:] != skey[:-1]
+    return pts_sorted, trunc_div(pts_sorted[:, :3], voxel_size), head, skey != SORT_SENTINEL
+
+
+def insert(
+    state: MapState,
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    voxel_size,
+    basic_points: int,
+    basic_label_mask: torch.Tensor,
+    max_incoming_per_voxel: int = 24,
+    probe_depth: int = DEFAULT_PROBE_DEPTH,
+    unique_voxel_capacity: int | None = None,
+    tables=None,
+):
+    """AddPoints with the reference's per-block retention policy.
+
+    points (N, 4) world xyz+label; valid (N,); basic_label_mask (L,) bool,
+    True for the basic-class labels. tables: the frame's ProbeTables
+    (correspondence_fast), else the map is probed with `lookup`.
+    Returns (new MapState, InsertStats). Never synchronises the host."""
+    cap = state.capacity
+    kmax = state.points_per_voxel
+    n = points.shape[0]
+    dev = points.device
+    U = n if unique_voxel_capacity is None else unique_voxel_capacity
+
+    pts_sorted, vkeys, head, val_sorted = _unique_voxels_of_points(points, valid, voxel_size)
+
+    # --- compact unique voxels ---------------------------------------------
+    head_valid = head & val_sorted
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    u_rank = torch.cumsum(head_valid, 0, dtype=torch.int32) - 1
+    head_pos = torch.full((U,), n, dtype=torch.int32, device=dev)
+    head_pos = set_rows(head_pos, u_rank, pos, head_valid & (u_rank < U))
+    hp_c = torch.clamp(head_pos, max=n - 1).long()
+    ukeys = vkeys[hp_c]
+    n_unique = head_valid.sum(dtype=torch.int32)
+    u_live = torch.arange(U, device=dev) < torch.clamp(n_unique, max=U)
+    # per-voxel incoming count: sorted valid points add into their segment
+    seg_idx = torch.where(val_sorted & (u_rank < U), u_rank, U).long()
+    seg_len = torch.zeros((U + 1,), dtype=torch.int32, device=dev)
+    seg_len.index_add_(0, seg_idx, torch.ones_like(seg_idx, dtype=torch.int32))
+    seg_len = seg_len[:U]
+
+    # --- a slot per unique voxel: lookup, then claim rounds -----------------
+    if tables is not None:
+        from sage_icp_tpu_torch.ops import correspondence_fast as cf
+
+        found_u, slots_u = cf.probe(tables, ukeys, cf.pack_rel(ukeys - tables.center[None, :]), probe_depth)
+        slot_u = torch.where(u_live & found_u, slots_u, -1)
+    else:
+        slot_u = torch.where(u_live, lookup(state, ukeys, probe_depth), -1)
+    need_claim = u_live & (slot_u < 0)
+    h = hash_keys(ukeys, cap)
+    # live slots cannot be claimed, nor can slots resolved this frame by
+    # the lookup (a culled block revived in place keeps its key)
+    pre = u_live & (slot_u >= 0)
+    taken = torch.cat([state.counts > 0, torch.zeros(1, dtype=torch.bool, device=dev)])
+    taken[torch.where(pre, slot_u, cap).long()] = True
+    uid = torch.arange(U, dtype=torch.int32, device=dev)
+    claim = torch.empty((cap + 1,), dtype=torch.int32, device=dev)
+    # All probe_depth rounds run: a round with nobody unresolved changes
+    # nothing, and a fixed count keeps the host out of the loop (the
+    # reference stops early through a data-dependent while_loop).
+    for d in range(probe_depth):
+        unresolved = need_claim & (slot_u < 0)
+        s = ((h + probe_offset(d)) & (cap - 1)).long()
+        eligible = unresolved & ~taken[s]
+        claim.fill_(_I32_MAX)
+        claim.scatter_reduce_(0, torch.where(eligible, s, cap), uid, reduce="amin")
+        won = eligible & (claim[s] == uid)
+        slot_u = torch.where(won, s.to(torch.int32), slot_u)
+        taken[torch.where(won, s, cap)] = True
+
+    newly = need_claim & (slot_u >= 0)
+    new_keys = set_rows(state.keys, slot_u, ukeys, newly)
+    new_counts = set_rows(state.counts, slot_u, torch.zeros_like(slot_u), newly)
+
+    has_slot = u_live & (slot_u >= 0)
+    stats = InsertStats(
+        unique_overflow=torch.clamp(n_unique - U, min=0).to(torch.int32),
+        claim_failures=(need_claim & (slot_u < 0)).sum(dtype=torch.int32),
+        incoming_truncated=torch.where(
+            u_live, torch.clamp(seg_len - max_incoming_per_voxel, min=0), 0
+        ).sum(dtype=torch.int32),
+    )
+
+    # --- retention policy on the compact (U, 4, K) buffer of touched blocks
+    num_labels = basic_label_mask.shape[0]
+    Rmax = max_incoming_per_voxel
+    slot_c = torch.where(has_slot, slot_u, 0).long()
+    points2 = state.points.reshape(cap, 4 * kmax)
+    compact = points2[slot_c].reshape(U, 4, kmax)
+    ccounts = new_counts[slot_c]
+    lab_s = torch.clamp(pts_sorted[:, 3].to(torch.int32), 0, num_labels - 1)
+    cls_s = torch.where(lab_s == 0, 0, torch.where(basic_label_mask[lab_s.long()], 1, 2))
+    pq_all = quantize_points(pts_sorted, vkeys, voxel_size)
+    enc = (lab_s | (cls_s << policy_kernel.CLS_SHIFT)).to(torch.int16)
+    # rank r of row u is sorted point head_pos[u] + r (wrapping; ranks at
+    # or beyond the row's seglen are never read)
+    win = (hp_c[:, None] + torch.arange(Rmax, device=dev)[None, :]) % n
+    seglen = torch.where(has_slot, torch.clamp(seg_len, max=Rmax), 0)[:, None].contiguous()
+    bx, by, bz, bl, cnt2 = policy_kernel.apply_policy(
+        compact[:, 0].contiguous(), compact[:, 1].contiguous(),
+        compact[:, 2].contiguous(), compact[:, 3].contiguous(),
+        ccounts[:, None].contiguous(), seglen,
+        pq_all[:, 0][win], pq_all[:, 1][win], pq_all[:, 2][win], enc[win],
+        basic=basic_points,
+    )
+    compact = torch.stack([bx, by, bz, bl], dim=1)
+    out = _insert_writeback(
+        state, points2, compact, cnt2[:, 0], has_slot, slot_u, ukeys,
+        new_keys, new_counts, voxel_size, cap, kmax, U,
+    )
+    return out, stats
+
+
+def _insert_writeback(state, points2, compact, ccounts, has_slot, slot_u, ukeys,
+                      new_keys, new_counts, voxel_size, cap, kmax, U) -> MapState:
+    """Write the policy-updated blocks back (slots are unique across live
+    rows). The label plane is sanitised on the way out: lanes at or
+    beyond the block's count get label -1, so the correspondence search
+    reads per-lane validity straight from storage."""
+    kidx = torch.arange(kmax, device=compact.device)
+    lab_plane = torch.where(kidx[None, :] < ccounts[:, None], compact[:, 3, :], -1).to(torch.int16)
+    compact = torch.cat([compact[:, :3, :], lab_plane[:, None, :]], dim=1)
+    new_points = set_rows(points2, slot_u, compact.reshape(U, 4 * kmax), has_slot).reshape(cap, 4, kmax)
+    new_counts = set_rows(new_counts, slot_u, ccounts, has_slot)
+    dt = state.first_pts.dtype
+    first_world = compact[:, :3, 0].to(dt) * (voxel_size / QSCALE) + ukeys.to(dt) * voxel_size
+    new_first = set_rows(state.first_pts, slot_u, first_world, has_slot)
+    return MapState(keys=new_keys, counts=new_counts, points=new_points, first_pts=new_first)
+
+
+def remove_far(state: MapState, origin: torch.Tensor, max_distance) -> MapState:
+    """Erase blocks whose FIRST point lies farther than max_distance from
+    origin: count 0, key EMPTY_KEY, first point INVALID_COORD, so no
+    probe can match the stale block again."""
+    d = state.first_pts - origin[None, :]
+    d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+    kill = (state.counts > 0) & (d2 > max_distance * max_distance)
+    killn = kill[:, None]
+    return state._replace(
+        counts=torch.where(kill, 0, state.counts),
+        keys=torch.where(killn, EMPTY_KEY, state.keys),
+        first_pts=torch.where(killn, INVALID_COORD, state.first_pts),
+    )
+
+
+def pointcloud(state: MapState, voxel_size):
+    """All stored points, world frame: ((C*K, 4), (C*K,) live mask)."""
+    kidx = torch.arange(state.points_per_voxel, device=state.counts.device)
+    mask = kidx[None, :] < state.counts[:, None]
+    world = dequantize_blocks(state.points, state.keys, voxel_size)
+    return world.reshape(-1, 4), mask.reshape(-1)
+
+
+# 27-neighbourhood offsets, lane order i-major (the reference's loop
+# order); correspondence rows lay their candidate blocks out in it.
+NEIGHBOR_OFFSETS = [[i, j, k] for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1)]
+
+
+def neighbor_offsets(device=None) -> torch.Tensor:
+    return torch.tensor(NEIGHBOR_OFFSETS, dtype=torch.int32, device=device)
+
+
+def get_correspondences(state: MapState, query, valid, voxel_size, max_correspondence_distance,
+                        sem_th, probe_depth: int = DEFAULT_PROBE_DEPTH):
+    """Reference-shaped semantic NN over the 27 neighbouring voxels.
+    query (N, 4) -> (target (N, 4), accept (N,)). Arg-min on the
+    sem_th-scaled squared distance (labels equal or either 0), acceptance
+    on the unweighted distance."""
+    kmax = state.points_per_voxel
+    v = trunc_div(query[:, :3], voxel_size)
+    nb = v[:, None, :] + neighbor_offsets(query.device)[None]  # (N, 27, 3)
+    slots = lookup(state, nb, probe_depth)
+    found = slots >= 0
+    safe = torch.where(found, slots, 0).long()
+    cand = dequantize_blocks(state.points[safe], nb, voxel_size, query.dtype)  # (N,27,K,4)
+    cnt = state.counts[safe]
+    kidx = torch.arange(kmax, device=query.device)
+    cmask = found[..., None] & (kidx[None, None, :] < cnt[..., None])
+
+    diff = cand[..., :3] - query[:, None, None, :3]
+    d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] + diff[..., 2] * diff[..., 2]
+    ql = query[:, 3].to(torch.int32)[:, None, None]
+    cl = cand[..., 3].to(torch.int32)
+    sem = (cl == ql) | (cl * ql == 0)
+    d2w = torch.where(sem, d2 * sem_th, d2)
+    d2w = torch.where(cmask, d2w, torch.finfo(d2.dtype).max)
+
+    N = query.shape[0]
+    best = torch.argmin(d2w.reshape(N, -1), dim=-1)
+    any_cand = cmask.reshape(N, -1).any(dim=-1)
+    tgt = cand.reshape(N, -1, 4)[torch.arange(N, device=query.device), best]
+    d2_true = d2.reshape(N, -1)[torch.arange(N, device=query.device), best]
+    accept = valid & any_cand & (torch.sqrt(d2_true) < max_correspondence_distance)
+    return tgt, accept

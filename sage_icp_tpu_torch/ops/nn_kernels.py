@@ -1,0 +1,222 @@
+"""Semantic nearest-neighbour kernels over frozen correspondence rows:
+the CUDA kernels (csrc/semantic_nn.cu, csrc/gn_iteration.cu) and their
+plain PyTorch versions.
+
+They replace the TPU kernels sage_icp_tpu/ops/pallas_nn.py::
+fused_semantic_nn and ::fused_gn_iteration. A row (see
+correspondence_fast.corr_setup) holds M = 27 * K candidate lanes as int16
+voxel-local planes plus an int16 label plane (-1 = invalid lane), and P
+query slots. Per slot the selection takes the FIRST lane minimising the
+squared distance, scaled by sem_th where the labels match or either is 0;
+invalid lanes never beat a valid one. Coordinates are row-local (relative
+to the row's voxel origin), where float32 is exact enough.
+
+Each wrapper runs its plain version for CPU tensors and launches its
+kernel for CUDA tensors (or raises); there is no other switch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from sage_icp_tpu_torch.ops import cuda_lib
+from sage_icp_tpu_torch.ops.scan import trunc_div
+
+BIG_D2 = 1.0e12  # true d2 reported for an invalid winner: fails any gate
+N_SUMS = 18  # w, w*s(3), w*s_i*s_j(6), w*r(3), w*(s x r)(3), ncorr, used
+TILE_ROWS = 128  # rows per tile of the tile_map dead-tile rule
+SUPPORTED_P = (1, 2, 4, 8)
+
+_F = ctypes.c_float
+_V = ctypes.c_void_p
+_I = ctypes.c_int
+_NN_ARGTYPES = [_V] * 8 + [_I, _I, _I, _F, _F] + [_V] * 6
+_GN_ARGTYPES = [_V] * 12 + [_I, _V, _I, _I, _I, _F, _F, _F, _F, _F, _V, _V, _V]
+
+
+def _check_rows(cx, cy, cz, cl, offx, offy, offz, P):
+    R, M = cx.shape
+    if P not in SUPPORTED_P:
+        raise ValueError(f"P = {P} query slots per row; the kernels take {SUPPORTED_P}")
+    for name, t in (("cx", cx), ("cy", cy), ("cz", cz), ("cl", cl)):
+        cuda_lib.check_cuda(name, t, torch.int16, (R, M))
+    for name, t in (("offx", offx), ("offy", offy), ("offz", offz)):
+        cuda_lib.check_cuda(name, t, torch.float32, (1, M))
+    return R, M
+
+
+def _dequant(cx, cy, cz, cl, offx, offy, offz, scale):
+    """(R, M) row-local candidate planes and the invalid-lane mask."""
+    cxf = cx.to(torch.float32) * scale + offx
+    cyf = cy.to(torch.float32) * scale + offy
+    czf = cz.to(torch.float32) * scale + offz
+    clf = cl.to(torch.float32)
+    return cxf, cyf, czf, clf, clf < 0.0
+
+
+def _select(cxf, cyf, czf, clf, invalid, qx, qy, qz, ql, sem_th):
+    """(R, P) first-minimum winners for (R, P) row-local queries, and the
+    (R, P, M) unweighted squared distances."""
+    dx = cxf[:, None, :] - qx[..., None]
+    dy = cyf[:, None, :] - qy[..., None]
+    dz = czf[:, None, :] - qz[..., None]
+    d2 = dx * dx + dy * dy + dz * dz
+    c = clf[:, None, :]
+    q = ql[..., None]
+    sem = (c == q) | ((c * q) == 0.0)
+    d2w = torch.where(sem, d2 * sem_th, d2)
+    d2w = torch.where(invalid[:, None, :], torch.finfo(torch.float32).max, d2w)
+    return torch.argmin(d2w, dim=-1), d2
+
+
+def fused_semantic_nn(cx, cy, cz, cl, offx, offy, offz, queries, sem_th, scale):
+    """cx/cy/cz/cl (R, M) int16; offx/offy/offz (1, M) f32 per-lane
+    neighbour offsets in metres; queries (R, 4P) f32 [x y z label],
+    row-local. Returns (tx, ty, tz, tl, d2), each (R, P) f32: the winner's
+    row-local xyz and label and its UNWEIGHTED squared distance (BIG_D2
+    for an invalid winner); the caller applies the acceptance gate."""
+    if cuda_lib.on_cpu(cx):
+        return fused_semantic_nn_plain(cx, cy, cz, cl, offx, offy, offz, queries, sem_th, scale)
+    P = queries.shape[1] // 4
+    R, M = _check_rows(cx, cy, cz, cl, offx, offy, offz, P)
+    cuda_lib.check_cuda("queries", queries, torch.float32, (R, 4 * P))
+    outs = [torch.empty((R, P), dtype=torch.float32, device=cx.device) for _ in range(5)]
+    fn = cuda_lib.function("semantic_nn.cu", "sage_semantic_nn", _NN_ARGTYPES)
+    p = cuda_lib.ptr
+    cuda_lib.call(
+        "fused_semantic_nn", fn,
+        p(cx), p(cy), p(cz), p(cl), p(offx), p(offy), p(offz), p(queries),
+        R, M, P, float(sem_th), float(scale), *[p(o) for o in outs],
+        cuda_lib.stream_ptr(cx.device),
+    )
+    return tuple(outs)
+
+
+def fused_semantic_nn_plain(cx, cy, cz, cl, offx, offy, offz, queries, sem_th, scale):
+    R = cx.shape[0]
+    q = queries.reshape(R, -1, 4)
+    cxf, cyf, czf, clf, invalid = _dequant(cx, cy, cz, cl, offx, offy, offz, scale)
+    best, d2 = _select(cxf, cyf, czf, clf, invalid, q[..., 0], q[..., 1], q[..., 2], q[..., 3], sem_th)
+    d2 = torch.where(invalid[:, None, :], BIG_D2, d2)
+    return (
+        torch.gather(cxf, 1, best), torch.gather(cyf, 1, best), torch.gather(czf, 1, best),
+        torch.gather(clf, 1, best), torch.gather(d2, 2, best[..., None])[..., 0],
+    )
+
+
+def default_tile_map(used: torch.Tensor) -> torch.Tensor:
+    """Live tiles map to themselves, tiles without a used slot to tile 0
+    (the JAX reference's dead-tile redirect)."""
+    R = used.shape[0]
+    n_tiles = -(-R // TILE_ROWS)
+    pad = torch.zeros((n_tiles * TILE_ROWS - R, used.shape[1]), dtype=used.dtype, device=used.device)
+    live = torch.cat([used, pad]).reshape(n_tiles, -1).ne(0).any(dim=1)
+    return torch.where(live, torch.arange(n_tiles, dtype=torch.int32, device=used.device), 0).to(torch.int32)
+
+
+def fused_gn_iteration(cx, cy, cz, cl, offx, offy, offz, q0, origin, row_abs, used, T,
+                       sem_th, scale, voxel_size, max_corr, kernel_th, tile_map=None):
+    """One fused Gauss-Newton iteration over the frozen rows.
+
+    q0 (R, 4P) f32 setup queries [x y z label], world frame; origin (R, 3)
+    f32 row voxel origins; row_abs (R, 3) int32 absolute row voxels; used
+    (R, P) int32; T (4, 4) f32 pose increment since setup (any device);
+    tile_map (ceil(R / TILE_ROWS),) int32, default_tile_map(used) when
+    None. Returns the (18,) f32 sums in N_SUMS order (deterministic)."""
+    if tile_map is None:
+        tile_map = default_tile_map(used)
+    if cuda_lib.on_cpu(cx):
+        return gn_terms(cx, cy, cz, cl, offx, offy, offz, q0, origin, row_abs, used, T,
+                        sem_th, scale, voxel_size, max_corr, kernel_th, tile_map).sum(dim=1)
+    dev = cx.device
+    P = used.shape[1]
+    R, M = _check_rows(cx, cy, cz, cl, offx, offy, offz, P)
+    cuda_lib.check_cuda("q0", q0, torch.float32, (R, 4 * P))
+    cuda_lib.check_cuda("origin", origin, torch.float32, (R, 3))
+    cuda_lib.check_cuda("row_abs", row_abs, torch.int32, (R, 3))
+    cuda_lib.check_cuda("used", used, torch.int32, (R, P))
+    cuda_lib.check_cuda("tile_map", tile_map, torch.int32, (-(-R // TILE_ROWS),))
+    T = T.to(device=dev, dtype=torch.float32).contiguous()
+    rows_per_block = cuda_lib.function("gn_iteration.cu", "sage_gn_rows_per_block", [])()
+    partials = torch.empty((-(-R // rows_per_block), N_SUMS), dtype=torch.float32, device=dev)
+    out = torch.empty((N_SUMS,), dtype=torch.float32, device=dev)
+    fn = cuda_lib.function("gn_iteration.cu", "sage_gn_iteration", _GN_ARGTYPES)
+    p = cuda_lib.ptr
+    cuda_lib.call(
+        "fused_gn_iteration", fn,
+        p(cx), p(cy), p(cz), p(cl), p(offx), p(offy), p(offz), p(q0), p(origin),
+        p(row_abs), p(used), p(tile_map), TILE_ROWS, p(T), R, M, P,
+        float(sem_th), float(scale), float(voxel_size), float(max_corr), float(kernel_th),
+        p(partials), p(out), cuda_lib.stream_ptr(dev),
+    )
+    return out
+
+
+def gn_terms(cx, cy, cz, cl, offx, offy, offz, q0, origin, row_abs, used, T,
+             sem_th, scale, voxel_size, max_corr, kernel_th, tile_map):
+    """Plain version of the GN kernel before its reduction: the (18, R*P)
+    per-slot terms whose row sums are the kernel's output. A dead tile
+    reads tile_map's block as the reference does; its used flags are its
+    own (all zero), so it adds zeros."""
+    R = cx.shape[0]
+    P = used.shape[1]
+    dev = cx.device
+    rows = torch.arange(R, device=dev)
+    src = (tile_map.long()[rows // TILE_ROWS] * TILE_ROWS + rows % TILE_ROWS).clamp(max=R - 1)
+    cxf, cyf, czf, clf, invalid = _dequant(cx[src], cy[src], cz[src], cl[src], offx, offy, offz, scale)
+    q = q0[src].reshape(R, P, 4)
+    org = origin[src]
+    rab = row_abs[src]
+    T = T.to(device=dev, dtype=torch.float32)
+    x0, y0, z0, ql = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    sx = T[0, 0] * x0 + T[0, 1] * y0 + T[0, 2] * z0 + T[0, 3]
+    sy = T[1, 0] * x0 + T[1, 1] * y0 + T[1, 2] * z0 + T[1, 3]
+    sz = T[2, 0] * x0 + T[2, 1] * y0 + T[2, 2] * z0 + T[2, 3]
+    use = used != 0
+    for s, a in ((sx, 0), (sy, 1), (sz, 2)):
+        use = use & (torch.abs(trunc_div(s, voxel_size) - rab[:, a : a + 1]) <= 1)
+    qx, qy, qz = sx - org[:, 0:1], sy - org[:, 1:2], sz - org[:, 2:3]
+    best, _ = _select(cxf, cyf, czf, clf, invalid, qx, qy, qz, ql, sem_th)
+    rx = qx - torch.gather(cxf, 1, best)
+    ry = qy - torch.gather(cyf, 1, best)
+    rz = qz - torch.gather(czf, 1, best)
+    r2 = rx * rx + ry * ry + rz * rz
+    mc = torch.tensor(max_corr, dtype=torch.float32, device=dev)
+    accept = use & ~torch.gather(invalid, 1, best) & (r2 < mc * mc)
+    k = torch.tensor(kernel_th, dtype=torch.float32, device=dev)
+    w = torch.where(accept, (k * k) / ((k + r2) * (k + r2)), 0.0)
+    terms = [
+        w, w * sx, w * sy, w * sz,
+        w * sx * sx, w * sy * sy, w * sz * sz, w * sx * sy, w * sx * sz, w * sy * sz,
+        w * rx, w * ry, w * rz,
+        w * (sy * rz - sz * ry), w * (sz * rx - sx * rz), w * (sx * ry - sy * rx),
+        accept.to(torch.float32), use.to(torch.float32),
+    ]
+    return torch.stack(terms).reshape(N_SUMS, R * P)
+
+
+def assemble_normal_equations(sums: torch.Tensor):
+    """(18,) sums -> (JTJ (6, 6), JTr (6,), ncorr, nused) for the
+    Jacobian J = [I | -hat(s)] of a point-to-point residual r = s - t."""
+    w = sums[0]
+    wsx, wsy, wsz = sums[1], sums[2], sums[3]
+    sxx, syy, szz = sums[4], sums[5], sums[6]
+    sxy, sxz, syz = sums[7], sums[8], sums[9]
+    z = torch.zeros_like(w)
+    ur = torch.stack([
+        torch.stack([z, wsz, -wsy]),
+        torch.stack([-wsz, z, wsx]),
+        torch.stack([wsy, -wsx, z]),
+    ])
+    tr = sxx + syy + szz
+    lr = torch.stack([
+        torch.stack([tr - sxx, -sxy, -sxz]),
+        torch.stack([-sxy, tr - syy, -syz]),
+        torch.stack([-sxz, -syz, tr - szz]),
+    ])
+    ul = w * torch.eye(3, dtype=sums.dtype, device=sums.device)
+    JTJ = torch.cat([torch.cat([ul, ur], dim=1), torch.cat([ur.T, lr], dim=1)], dim=0)
+    JTr = torch.cat([sums[10:13], sums[13:16]])
+    return JTJ, JTr, sums[16].to(torch.int32), sums[17].to(torch.int32)

@@ -15,7 +15,12 @@ setup(
         "sage_icp_tpu.datasets",
         "sage_icp_tpu.metrics",
         "sage_icp_tpu.runtime",
+        "sage_icp_tpu_torch",
+        "sage_icp_tpu_torch.ops",
+        "sage_icp_tpu_torch.models",
+        "sage_icp_tpu_torch.utils",
     ],
+    package_data={"sage_icp_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     ext_modules=[
         Extension(
             "sage_icp_tpu._native",

@@ -1,0 +1,254 @@
+"""The port on the card: each CUDA kernel against its plain PyTorch
+version, the ICP solve against the port on the CPU, and the odometry
+step on the reference suite's trajectories (golden fixture, turn-stop-
+reverse maneuver, undersized capacities, a garbage scan). This file
+imports no JAX, so it runs where only PyTorch is installed
+(tests/conftest.py imports jax, hence --noconftest):
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
+
+Without a CUDA device every test skips. Tolerances: the retention policy
+and the semantic NN bit for bit; the GN sums within 1e-5 of the sum of
+their terms' magnitudes (only the summation order differs); poses within
+1e-4 of the CPU run; the golden trajectory within 0.02 m / 0.02; the
+maneuver ATE below 0.30 m and re-lock after a garbage scan within
+0.25 m, as in tests/test_robustness.py.
+
+The seeded input builders here are shared with tests/test_torch_kernels.py.
+"""
+
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from sage_icp_tpu_torch.models import pipeline as tpl
+from sage_icp_tpu_torch.ops import correspondence_fast as tcf
+from sage_icp_tpu_torch.ops import cuda_lib, nn_kernels, policy_kernel
+from sage_icp_tpu_torch.ops import geometry as tgeo
+from sage_icp_tpu_torch.ops import hashmap as thm
+from sage_icp_tpu_torch.ops import registration as treg
+from sage_icp_tpu_torch.utils import synthetic
+
+VOXEL = 1.0
+SEM_TH, MAX_CORR, KTH = 0.4, 1.5, 0.5
+BASIC_LABELS = (40, 44, 48, 49, 50, 70, 72)
+GOLDEN_PATH = pathlib.Path(__file__).parent / "data" / "golden_traj.npz"
+# the golden fixture's configuration (tests/test_robustness.small_config)
+GOLDEN_CONFIG = dict(
+    scan_capacity=16384, frame_capacity=16384, source_capacity=8192, map_capacity=65536,
+    max_icp_iterations=500, dynamic_vehicle_filter=False, min_range=1.0,
+    corr_unique_voxel_rows=8192, corr_overflow_rows=512, insert_unique_capacity=9216,
+)
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def nn_rows(seed, R=256, P=2, K=8, dead_from=None):
+    """Seeded correspondence rows: invalid lanes, label-0 lanes and
+    queries, optional dead trailing rows (no used slot)."""
+    rng = np.random.default_rng(seed)
+    M = 27 * K
+    planes = [rng.integers(-32767, 32768, (R, M), dtype=np.int16) for _ in range(3)]
+    planes.append(rng.choice(np.array([-1, 0, 40, 50, 10], np.int16), (R, M)))
+    offs = tcf.lane_offsets(K, VOXEL)
+    row_abs = rng.integers(-30, 30, (R, 3)).astype(np.int32)
+    origin = row_abs.astype(np.float32) * np.float32(VOXEL)
+    local = rng.uniform(-0.3, 1.3, (R, P, 3)).astype(np.float32)
+    lab = rng.choice(np.array([0, 40, 50, 10], np.float32), (R, P, 1))
+    used = (rng.random((R, P)) < 0.8).astype(np.int32)
+    if dead_from is not None:
+        used[dead_from:] = 0
+    return dict(
+        planes=planes, offs=[o.numpy() for o in offs], used=used, row_abs=row_abs, origin=origin,
+        q_local=np.concatenate([local, lab], -1).reshape(R, 4 * P),
+        q_world=np.concatenate([local + origin[:, None, :], lab], -1).reshape(R, 4 * P),
+    )
+
+
+def policy_rows(seed, U=256, K=8, Rm=8):
+    """Seeded retention-policy rows: label-0 slots, rows without a slot
+    (seglen 0), every class among the incoming points."""
+    rng = np.random.default_rng(seed)
+    blocks = [rng.integers(-32767, 32768, (U, K), dtype=np.int16) for _ in range(3)]
+    blocks.append(rng.choice(np.array([0, 40, 50, 10, 80], np.int16), (U, K)))
+    counts = rng.integers(0, K + 1, (U, 1)).astype(np.int32)
+    seglen = rng.integers(0, Rm + 1, (U, 1)).astype(np.int32)
+    seglen[::5] = 0
+    inc = [rng.integers(-32767, 32768, (U, Rm), dtype=np.int16) for _ in range(3)]
+    lab = rng.choice(np.array([0, 40, 44, 50, 10, 80, 81]), (U, Rm))
+    cls = np.where(lab == 0, 0, np.where(np.isin(lab, BASIC_LABELS), 1, 2))
+    enc = (lab | (cls << policy_kernel.CLS_SHIFT)).astype(np.int16)
+    return blocks + [counts, seglen] + inc + [enc]
+
+
+def gn_fixture(n=2000, seed=0):
+    """Two walls and a floor (a well-conditioned 6-DoF problem) as the
+    world, and the frame seen from a known offset."""
+    rng = np.random.default_rng(seed)
+    floor = np.stack([rng.uniform(-10, 10, n), rng.uniform(-10, 10, n), rng.normal(0, 0.01, n)], 1)
+    wall1 = np.stack([rng.uniform(-10, 10, n // 2), 8.0 + rng.normal(0, 0.01, n // 2),
+                      rng.uniform(0, 5, n // 2)], 1)
+    wall2 = np.stack([-9.0 + rng.normal(0, 0.01, n // 2), rng.uniform(-10, 10, n // 2),
+                      rng.uniform(0, 5, n // 2)], 1)
+    world = np.concatenate([floor, wall1, wall2]).astype(np.float32)
+    world = np.concatenate([world, np.zeros((len(world), 1), np.float32)], axis=1)
+    xi = torch.tensor([0.12, -0.08, 0.04, 0.015, -0.01, 0.02])
+    Tinv = tgeo.se3_inverse(tgeo.se3_exp(xi)).numpy()
+    frame = world.copy()
+    frame[:, :3] = frame[:, :3] @ Tinv[:3, :3].T + Tinv[:3, 3]
+    return world, frame
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 2, 4, 8])
+def test_semantic_nn_kernel_matches_plain(card, P):
+    d = nn_rows(4, R=300, P=P)
+    args = [t(a).to(card) for a in d["planes"] + d["offs"] + [d["q_local"]]] + [SEM_TH, VOXEL / 32767.0]
+    got = nn_kernels.fused_semantic_nn(*args)
+    want = nn_kernels.fused_semantic_nn_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,dead_from", [(2, None), (2, 300), (8, 200)])
+def test_gn_kernel_matches_plain(card, P, dead_from):
+    d = nn_rows(5, R=384, P=P, dead_from=dead_from)
+    T = tgeo.se3_exp(torch.tensor([0.05, -0.02, 0.01, 0.004, -0.003, 0.006]))
+    args = [t(a).to(card) for a in d["planes"] + d["offs"] + [d["q_world"], d["origin"], d["row_abs"], d["used"]]]
+    args += [T.to(card), SEM_TH, VOXEL / 32767.0, VOXEL, MAX_CORR, KTH]
+    tile_map = nn_kernels.default_tile_map(args[10])
+    got = nn_kernels.fused_gn_iteration(*args, tile_map=tile_map)
+    terms = nn_kernels.gn_terms(*args, tile_map)
+    assert torch.all((got - terms.sum(dim=1)).abs() <= 1e-5 * terms.abs().sum(dim=1) + 1e-6)
+    assert float(got[16]) > 0
+    # the reduction is deterministic
+    assert torch.equal(got, nn_kernels.fused_gn_iteration(*args, tile_map=tile_map))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Rm", [(8, 8), (40, 48)])
+def test_policy_kernel_matches_plain(card, K, Rm):
+    args = [t(a).to(card) for a in policy_rows(3, U=1000, K=K, Rm=Rm)]
+    got = policy_kernel.apply_policy(*args, basic=K // 2)
+    want = policy_kernel.apply_policy_plain(*args, basic=K // 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_register_frame_on_card_matches_cpu(card):
+    world, frame = gn_fixture()
+    n = len(world)
+    fast = dict(unique_voxel_rows=896, queries_per_voxel=8, overflow_rows=128)
+    kw = dict(max_correspondence_distance=1.5, kernel=0.5, sem_th=0.5, max_iterations=60, fast_params=fast)
+    out = []
+    for dev in ("cpu", card):
+        m, _ = thm.insert(thm.create(8192, 8, dev), t(world).to(dev), torch.ones(n, dtype=torch.bool, device=dev),
+                          1.0, 8, torch.zeros(260, dtype=torch.bool, device=dev))
+        out.append(treg.register_frame(m, t(frame).to(dev), torch.ones(n, dtype=torch.bool, device=dev),
+                                       torch.eye(4), 1.0, **kw))
+    np.testing.assert_allclose(out[1].pose.cpu().numpy(), out[0].pose.numpy(), atol=1e-4)
+    assert abs(out[1].iterations - out[0].iterations) <= 1
+
+
+@pytest.mark.cuda
+def test_golden_trajectory_on_card(card):
+    pts, labs = synthetic.build_world(seed=1, length=80.0)
+    gt = synthetic.make_trajectory(12, step=1.0)
+    rng = np.random.default_rng(3)
+    odom = tpl.SageICP(tpl.SageConfig(**GOLDEN_CONFIG))
+    cuda_lib.reset_launches()
+    for i in range(12):
+        odom.register_frame(synthetic.render_scan(pts, labs, gt[i], rng, n_target=14000))
+    est = odom.trajectory()
+    golden = np.load(GOLDEN_PATH)["poses"]
+    assert np.linalg.norm(golden[:, :3, 3] - est[:, :3, 3], axis=-1).max() < 0.02
+    assert np.linalg.norm(golden[:, :3, :3] - est[:, :3, :3], axis=(-2, -1)).max() < 0.02
+    assert int(odom.aux_totals().overflow_total()) == 0
+    assert cuda_lib.LAUNCHES["fused_gn_iteration"] == sum(odom.icp_iters)
+    assert cuda_lib.LAUNCHES["apply_policy"] == 12
+
+
+def drive_on_card(config, world, gt, seed=3, corrupt=None):
+    """Register rendered scans of `world` along gt on the card; `corrupt`
+    maps a frame index to a function applied to that frame's scan.
+    Returns (poses, per-frame last_aux list, odom)."""
+    pts, labs = world
+    rng = np.random.default_rng(seed)
+    odom = tpl.SageICP(config)
+    auxes = []
+    for i in range(len(gt)):
+        scan = synthetic.render_scan(pts, labs, gt[i], rng, n_target=14000)
+        if corrupt is not None and i in corrupt:
+            scan = corrupt[i](scan)
+        odom.register_frame(scan)
+        auxes.append(odom.last_aux)
+    return odom.trajectory(), auxes, odom
+
+
+def ate(est, gt):
+    g0, e0 = np.linalg.inv(gt[0]), np.linalg.inv(est[0])
+    err = [np.linalg.norm((e0 @ e)[:3, 3] - (g0 @ g)[:3, 3]) for e, g in zip(est, gt)]
+    return float(np.sqrt(np.mean(np.square(err))))
+
+
+@pytest.fixture(scope="module")
+def small_city():
+    return synthetic.build_city_world(seed=2, size=160.0, block=50.0, density=1.6)
+
+
+def golden_config(**kw):
+    return tpl.SageConfig(**{**GOLDEN_CONFIG, **kw})
+
+
+@pytest.mark.cuda
+def test_turn_stop_reverse_on_card(card, small_city):
+    """A 90-degree turn over 15 frames, a stop and a reversal (the
+    reference suite's maneuver test): ATE < 0.30 m, no motion while
+    stopped."""
+    gt = synthetic.make_maneuver_trajectory(straight=8, turn=15, stop=3, reverse=6, step=0.75)
+    est, _, _ = drive_on_card(golden_config(), small_city, gt)
+    assert ate(est, gt) < 0.30
+    assert np.linalg.norm(est[25][:3, 3] - est[24][:3, 3]) < 0.10
+
+
+@pytest.mark.cuda
+def test_overflow_counters_fire_when_undersized_on_card(card, small_city):
+    gt = synthetic.make_maneuver_trajectory(straight=4, turn=0, stop=0, reverse=0)
+    _, auxes, _ = drive_on_card(golden_config(corr_unique_voxel_rows=64, corr_overflow_rows=32), small_city, gt)
+    assert int(auxes[-1].corr_dropped) > 0 and int(auxes[-1].overflow_total()) > 0
+    _, _, odom = drive_on_card(golden_config(insert_unique_capacity=256, max_incoming_per_voxel=2),
+                               small_city, gt)
+    assert int(odom.aux_totals().insert_unique_overflow) > 0
+    _, _, odom = drive_on_card(golden_config(), small_city, gt)
+    assert int(odom.aux_totals().overflow_total()) == 0
+
+
+@pytest.mark.cuda
+def test_recovers_from_garbage_scan_on_card(card, small_city):
+    """One scan lifted 25 m costs one frame: the health guard rejects it,
+    coasts on the motion model, skips its insert, and the next scans
+    re-lock."""
+    gt = synthetic.make_trajectory(12, step=1.0)
+    bad = 7
+
+    def lift(scan):
+        scan = scan.copy()
+        scan[:, 2] += 25.0
+        return scan
+
+    est, auxes, _ = drive_on_card(golden_config(), small_city, gt, corrupt={bad: lift})
+    assert np.isfinite(est).all()
+    assert [i for i, a in enumerate(auxes) if int(a.icp_rejected) or int(a.nonfinite_pose)] == [bad]
+    for i in range(bad + 1, len(gt)):
+        assert np.linalg.norm(est[i][:3, 3] - (gt[i][:3, 3] - gt[0][:3, 3])) < 0.25

@@ -1,0 +1,112 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+On the CPU each wrapper runs its plain PyTorch version; the JAX side runs
+the Pallas kernel in interpret mode. Tolerances: the semantic NN outputs
+within 1e-6 (the same winners; XLA rounds d2 an ulp differently), the
+GN sums within 1e-5 of the sum of their terms' magnitudes (only the
+summation order differs), the retention policy bit for bit. The CUDA
+kernels themselves are held against these plain versions on the card
+by tests/test_torch_cuda.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sage_icp_tpu.ops import geometry as jgeo
+from sage_icp_tpu.ops import hashmap as jhm
+from sage_icp_tpu.ops import pallas_insert as jpi
+from sage_icp_tpu.ops import pallas_nn as jpn
+from sage_icp_tpu.ops import registration as jreg
+from sage_icp_tpu_torch.ops import hashmap as thm
+from sage_icp_tpu_torch.ops import nn_kernels, policy_kernel
+from sage_icp_tpu_torch.ops import registration as treg
+from tests.oracle import OracleVoxelMap
+from tests.test_torch_cuda import BASIC_LABELS, KTH, MAX_CORR, SEM_TH, VOXEL, gn_fixture, nn_rows, policy_rows, t
+
+def test_semantic_nn_plain_matches_pallas():
+    d = nn_rows(0)
+    scale = VOXEL / 32767.0
+    args = d["planes"] + d["offs"] + [d["q_local"]]
+    want = jpn.fused_semantic_nn(*[jnp.asarray(a) for a in args], SEM_TH, scale, interpret=True)
+    got = nn_kernels.fused_semantic_nn(*[t(a) for a in args], SEM_TH, scale)
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6)
+
+
+@pytest.mark.parametrize("dead_from", [None, 100])
+def test_gn_iteration_plain_matches_pallas(dead_from):
+    """dead_from=100: tiles 1 and 2 of 3 hold no used slot, the tile map
+    redirects them to tile 0 (the reference's dead-tile rule)."""
+    R = 384
+    d = nn_rows(1, R=R, dead_from=dead_from)
+    scale = VOXEL / 32767.0
+    T = np.asarray(jgeo.se3_exp(jnp.asarray([0.03, -0.02, 0.01, 0.004, -0.003, 0.006], jnp.float32)))
+    tile_map = nn_kernels.default_tile_map(t(d["used"]))
+    if dead_from is not None:
+        assert tile_map.tolist() == [0, 0, 0]
+    args = d["planes"] + d["offs"] + [d["q_world"], d["origin"], d["row_abs"], d["used"], T]
+    want = np.asarray(jpn.fused_gn_iteration(
+        *[jnp.asarray(a) for a in args], SEM_TH, scale, VOXEL, MAX_CORR, KTH,
+        interpret=True, tile_map=jnp.asarray(tile_map.numpy())))
+    targs = [t(a) for a in args] + [SEM_TH, scale, VOXEL, MAX_CORR, KTH]
+    got = nn_kernels.fused_gn_iteration(*targs, tile_map=tile_map).numpy()
+    mag = nn_kernels.gn_terms(*targs, tile_map).abs().sum(dim=1).numpy()
+    assert np.all(np.abs(got - want) <= 1e-5 * mag + 1e-6), (got, want)
+    assert got[16] > 0 and got[16] == want[16] and got[17] == want[17]
+
+
+def test_policy_plain_matches_pallas():
+    args = policy_rows(2)
+    basic = 4
+    seglen = args[5]
+    want = jpi.apply_policy(*[jnp.asarray(a) for a in args], jnp.asarray(int(seglen.max())),
+                            n_rounds=8, basic=basic, interpret=True)
+    got = policy_kernel.apply_policy(*[t(a) for a in args], basic=basic)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_retention_policy_exact_sequence():
+    """One voxel through every branch of the policy: fill the basic part
+    with label-0 and basic points, drop a label-0 point on a full basic
+    part, overwrite the first label-0 point with a basic point, append
+    critical points, overwrite with a critical point on a full block,
+    drop when no label-0 point is left. The port's insert agrees with the
+    oracle and with the JAX insert."""
+    basic, critical = 4, 3
+    seq = [[0.1 + 0.01 * i, 0.1, 0.1, 0.0 if i % 2 == 0 else 40.0] for i in range(basic)]
+    seq += [[0.5, 0.5, 0.5, 0.0], [0.6, 0.6, 0.6, 44.0]]
+    seq += [[0.7, 0.7, 0.7 - 0.01 * i, 10.0] for i in range(critical)]
+    seq += [[0.8, 0.8, 0.8, 81.0], [0.9, 0.9, 0.9, 81.0]]
+    seq = np.array(seq, np.float32)
+    mask = np.zeros(260, bool)
+    mask[list(BASIC_LABELS)] = True
+    mt, _ = thm.insert(thm.create(1024, basic + critical), t(seq), torch.ones(len(seq), dtype=torch.bool),
+                       VOXEL, basic, t(mask))
+    mj = jhm.insert(jhm.create(1024, basic + critical), jnp.asarray(seq), jnp.ones(len(seq), bool),
+                    VOXEL, basic, jnp.asarray(mask))
+    np.testing.assert_array_equal(mt.points.numpy(), np.asarray(mj.points))
+    oracle = OracleVoxelMap(VOXEL, 100.0, basic, critical, BASIC_LABELS)
+    oracle.add_points(seq)
+    pts, live = thm.pointcloud(mt, VOXEL)
+    got = pts[live].numpy().astype(np.float64).round(4)
+    ref = np.asarray(oracle.pointcloud(), np.float64).round(4)
+    np.testing.assert_allclose(got[np.lexsort(got.T)], ref[np.lexsort(ref.T)], atol=1e-3)
+
+
+def test_register_frame_matches_jax():
+    world, frame = gn_fixture()
+    n = len(world)
+    mj = jhm.insert(jhm.create(8192, 8), jnp.asarray(world), jnp.ones(n, bool), 1.0, 8, jnp.zeros(260, bool))
+    mt, _ = thm.insert(thm.create(8192, 8), t(world), torch.ones(n, dtype=torch.bool), 1.0, 8,
+                       torch.zeros(260, dtype=torch.bool))
+    np.testing.assert_array_equal(mt.points.numpy(), np.asarray(mj.points))
+    fast = dict(unique_voxel_rows=896, queries_per_voxel=8, overflow_rows=128)
+    kw = dict(max_correspondence_distance=1.5, kernel=0.5, sem_th=0.5, max_iterations=60, fast_params=fast)
+    rj = jreg.register_frame(mj, jnp.asarray(frame), jnp.ones(n, bool), jnp.eye(4, dtype=jnp.float32), 1.0,
+                             **kw)
+    rt = treg.register_frame(mt, t(frame), torch.ones(n, dtype=torch.bool), torch.eye(4), 1.0, **kw)
+    np.testing.assert_allclose(rt.pose.numpy(), np.asarray(rj.pose), atol=1e-4)
+    assert abs(rt.iterations - int(rj.iterations)) <= 1
+    assert abs(rt.num_correspondences - int(rj.num_correspondences)) <= max(2, rt.num_correspondences // 100)
