@@ -5,19 +5,31 @@
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from sage_icp_tpu_torch/csrc;
-  3. every kernel against its plain PyTorch version on the card, at the
-     city preset's shapes, on seeded inputs: the retention policy bit for
-     bit, the semantic NN outputs equal, the GN sums within 1e-4 of the
-     sum of their terms' magnitudes (only the summation order differs);
-     kernel and plain times are CUDA-event medians of 20 calls;
-  4. the main path: SageICP("city") over the Manhattan city world at
+  3. every kernel against its plain PyTorch version on the card, on
+     seeded inputs: at the city preset's shapes the semantic NN outputs
+     equal; at the city and the kitti preset's shapes the retention
+     policy bit for bit and the GN sums within 1e-4 of the sum of their
+     terms' magnitudes (only the summation order differs); at the kitti
+     filter's shapes the radius count bit for bit;
+     the bitonic sort bit for bit at N = 2^16 and 2^18 (two uint32 keys,
+     an iota key, a float32 payload). Kernel, plain and library times are
+     CUDA-event medians of 20 calls;
+  4. the city path: SageICP("city") over the Manhattan city world at
      density 0.7, 10 warm-up and 30 timed frames; no silent drop over all
      frames, ATE < 0.05 m, and launch counts showing that every ICP
      iteration ran the GN kernel and every insert the policy kernel;
-  5. the single-pass search (get_correspondences_fast) on the final map,
-     through the semantic NN kernel, against the reference-shaped search;
-  6. with --profile only: a frame's host phases and the device's busy
-     share and kernels (torch.profiler) on five further frames.
+  5. the single-pass search (get_correspondences_fast) on the final city
+     map, through the semantic NN kernel, against the reference-shaped
+     search;
+  6. the kitti path: SageICP(), the production kitti preset with its
+     dynamic-vehicle filter, over the city world at density 1.3, 10
+     warm-up and 30 timed frames, with the same gates, and the radius
+     count launched once per frame;
+  7. on the kitti drive's last frame: vehicle points in, kept and
+     removed; the filter on the card against the filter on the CPU; the
+     bitonic sort of the filter's sort keys against torch.sort;
+  8. with --profile only: each path's host phases, device busy share and
+     kernels (torch.profiler) on five further frames.
 The line before the device line is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits non-zero and prints no result.
@@ -36,9 +48,16 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-CITY = dict(R=10_240 + 1_024, P=2, K=40, U=16_896, R_max=48, voxel=0.8)
+# correspondence rows (R x P slots x 27 * K lanes, rows from `live` on dead)
+# and insert rows (U x R_max) of the two paths
+CITY = dict(name="city", R=10_240 + 1_024, P=2, K=40, U=16_896, R_max=48, voxel=0.8, live=9_000)
+KITTI = dict(name="kitti", R=16_384 + 2_048, P=2, K=40, U=33_024, R_max=48, voxel=0.8, live=14_000)
+# the dynamic filter's radius-count rows: vehicle cell rows x query slots x
+# 27 neighbour cells of 32 landmark lanes
+KITTI_FILTER = dict(VR=4_096, P=48, M=27 * 32, r2=0.25)
+SORT_NS = (2**16, 2**18)  # bitonic checks; the kitti scan's keys pad to 2^18
 GN_SUM_RTOL = 1e-4
-WARMUP, FRAMES = 10, 30  # main path: warm-up and timed frames
+WARMUP, FRAMES = 10, 30  # each path: warm-up and timed frames
 
 
 def fail(msg: str) -> None:
@@ -68,13 +87,13 @@ def bound(n_bytes: float, n_flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def row_inputs(rng, dev):
-    """Seeded correspondence rows at city shapes: invalid lanes, label-0
-    candidates and queries, a dead tail of whole tiles."""
+def row_inputs(rng, dev, shape):
+    """Seeded correspondence rows at a path's shapes: invalid lanes,
+    label-0 candidates and queries, a dead tail of whole tiles."""
     from sage_icp_tpu_torch.ops import correspondence_fast as cf
     from sage_icp_tpu_torch.ops import geometry as geo
 
-    R, P, K, v = CITY["R"], CITY["P"], CITY["K"], CITY["voxel"]
+    R, P, K, v = shape["R"], shape["P"], shape["K"], shape["voxel"]
     M = 27 * K
     planes = [torch.from_numpy(rng.integers(-32767, 32768, (R, M), dtype=np.int16)).to(dev) for _ in range(3)]
     labels = rng.choice(np.array([-1, 0, 40, 50, 10, 80], np.int16), (R, M), p=[0.35, 0.15, 0.2, 0.1, 0.1, 0.1])
@@ -87,17 +106,17 @@ def row_inputs(rng, dev):
     q_local = np.concatenate([local, qlab], axis=-1).reshape(R, 4 * P)
     q_world = np.concatenate([local + origin[:, None, :], qlab], axis=-1).reshape(R, 4 * P)
     used = (rng.random((R, P)) < 0.8).astype(np.int32)
-    used[9_000:] = 0  # rows past the demand: whole dead tiles
+    used[shape["live"]:] = 0  # rows past the demand: whole dead tiles
     T = geo.se3_exp(torch.tensor([0.02, -0.01, 0.005, 0.001, -0.002, 0.003]))
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     return dict(planes=planes + [cl], offs=offs, q_local=t(q_local), q0=t(q_world), origin=t(origin),
                 row_abs=t(row_abs), used=t(used), T=T.to(dev))
 
 
-def policy_inputs(rng, dev):
+def policy_inputs(rng, dev, shape):
     from sage_icp_tpu_torch.ops.policy_kernel import CLS_SHIFT
 
-    U, K, Rm = CITY["U"], CITY["K"], CITY["R_max"]
+    U, K, Rm = shape["U"], shape["K"], shape["R_max"]
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     blocks = [rng.integers(-32767, 32768, (U, K), dtype=np.int16) for _ in range(3)]
     blocks.append(rng.choice(np.array([0, 40, 50, 10, 80], np.int16), (U, K)))
@@ -111,20 +130,124 @@ def policy_inputs(rng, dev):
     return [t(b) for b in blocks] + [t(counts), t(seglen)] + [t(i) for i in inc] + [t(enc)], int(seglen.sum())
 
 
+def radius_inputs(rng, dev):
+    """Seeded radius-count rows at the kitti filter's shapes: queries on a
+    2^-10 m grid, candidates around them, lanes exactly 0.5 m from a query
+    along an axis (d2 == r2 without rounding), 1e9 sentinel lanes, unused
+    slots and rows without a used slot."""
+    R, P, M = KITTI_FILTER["VR"], KITTI_FILTER["P"], KITTI_FILTER["M"]
+    grid = lambda a: np.round(a * 1024.0) / 1024.0
+    center = grid(rng.uniform(-50.0, 50.0, (R, 1, 3)))
+    q = (center + grid(rng.uniform(-0.25, 0.25, (R, P, 3)))).astype(np.float32)
+    cand = (center + rng.uniform(-0.75, 0.75, (R, M, 3))).astype(np.float32)
+    for lane in range(24):
+        cand[:, lane] = q[:, lane % P]
+        cand[:, lane, lane % 3] += np.float32(0.5 if lane % 2 else -0.5)
+    cand[rng.random((R, M)) < 0.3] = 1.0e9
+    used = (rng.random((R, P)) < 0.7).astype(np.int32)
+    used[rng.random(R) < 0.5] = 0  # about half the rows are dead, as on the drive
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return [t(cand[..., 0]), t(cand[..., 1]), t(cand[..., 2]), t(q.reshape(R, 3 * P)), t(used)]
+
+
+def sort_inputs(rng, n, dev):
+    """Two heavily duplicated uint32 keys (as int32 views, high bits set),
+    an iota key and a float32 payload."""
+    k1 = rng.choice(np.array([0, 7, 2**31 - 1, 2**31, 2**32 - 1], np.uint64), n).astype(np.uint32)
+    k2 = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32) & np.uint32(0xF000000F)
+    planes = [k1.view(np.int32), k2.view(np.int32), np.arange(n, dtype=np.int32),
+              rng.normal(size=n).astype(np.float32)]
+    return [torch.from_numpy(p).to(dev) for p in planes]
+
+
+def sort_library(planes):
+    """The same sort in PyTorch calls: the two uint32 keys packed into one
+    int64 key (the first shifted into the signed range), one stable
+    torch.sort (equal keys keep their iota order), then the gathers."""
+    u32 = lambda p: p.to(torch.int64) & 0xFFFFFFFF
+    key = (u32(planes[0]) - 2**31) * 2**32 + u32(planes[1])
+    order = torch.sort(key, stable=True).indices
+    return tuple(p[order] for p in planes)
+
+
+GN_CONST = dict(sem_th=0.4, max_corr=1.5, kth=0.5)
+
+
+def check_gn(d, shape, dev):
+    """The GN kernel against its plain version on rows `d` of `shape`: the
+    sums within GN_SUM_RTOL of the sum of their terms' magnitudes (only
+    the summation order differs), the used count equal. Returns its row."""
+    from sage_icp_tpu_torch.ops import nn_kernels
+
+    R, P, M, v = shape["R"], shape["P"], 27 * shape["K"], shape["voxel"]
+    tile_map = nn_kernels.default_tile_map(d["used"])
+    gn_args = (*d["planes"], *d["offs"], d["q0"], d["origin"], d["row_abs"], d["used"], d["T"],
+               GN_CONST["sem_th"], v / 32767.0, v, GN_CONST["max_corr"], GN_CONST["kth"])
+    got = nn_kernels.fused_gn_iteration(*gn_args, tile_map=tile_map)
+    terms = nn_kernels.gn_terms(*gn_args, tile_map)
+    want = terms.sum(dim=1)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    tol = GN_SUM_RTOL * terms.abs().sum(dim=1)
+    if not bool(torch.all(diff <= tol)):
+        fail(f"fused_gn_iteration at {shape['name']} shapes disagrees with its plain version: "
+             f"{diff.tolist()} vs {tol.tolist()}")
+    if float(want[16]) <= 0 or float(got[17]) != float(want[17]):
+        fail(f"fused_gn_iteration at {shape['name']} shapes: degenerate comparison (no accepted slot) "
+             "or used-count mismatch")
+    live_rows = int((tile_map == torch.arange(len(tile_map), device=dev)).sum()) * nn_kernels.TILE_ROWS
+    live_rows = min(live_rows, R)
+    gn_bytes = live_rows * (4 * M * 2 + 4 * P * 4 + 3 * 4 + 3 * 4 + P * 4) + 3 * M * 4 + len(tile_map) * 4 + 18 * 4
+    b_ms, b_by = bound(gn_bytes, live_rows * M * (6 + 10 * P))
+    return dict(
+        route="cuda", source="sage_icp_tpu_torch/csrc/gn_iteration.cu",
+        replaces="sage_icp_tpu/ops/pallas_nn.py:286", max_abs_err=float(diff.max()),
+        ms=time_ms(lambda: nn_kernels.fused_gn_iteration(*gn_args, tile_map=tile_map)),
+        plain_ms=time_ms(lambda: nn_kernels.gn_terms(*gn_args, tile_map).sum(dim=1)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def check_policy(rng, dev, shape):
+    """The policy kernel against its plain version, bit for bit, on seeded
+    insert rows of `shape`. Returns its row."""
+    from sage_icp_tpu_torch.ops import policy_kernel
+
+    U, K = shape["U"], shape["K"]
+    pargs, total_seg = policy_inputs(rng, dev, shape)
+    got = policy_kernel.apply_policy(*pargs, basic=20)
+    want = policy_kernel.apply_policy_plain(*pargs, basic=20)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail(f"apply_policy at {shape['name']} shapes is not bit-exact against its plain version")
+    pol_bytes = 2 * (4 * U * K * 2) + 2 * U * 4 + 4 * total_seg * 2 + U * 4
+    b_ms, b_by = bound(pol_bytes, total_seg * 10)
+    return dict(
+        route="cuda", source="sage_icp_tpu_torch/csrc/retention_policy.cu",
+        replaces="sage_icp_tpu/ops/pallas_insert.py:223", max_abs_err=0.0,
+        ms=time_ms(lambda: policy_kernel.apply_policy(*pargs, basic=20)),
+        plain_ms=time_ms(lambda: policy_kernel.apply_policy_plain(*pargs, basic=20)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def print_row(name, r) -> None:
+    lib = "" if r["library_ms"] is None else f" library {r['library_ms']:.4f} ms"
+    print(f"kernel {name}: max_abs_err {r['max_abs_err']} kernel {r['ms']:.4f} ms "
+          f"plain {r['plain_ms']:.4f} ms{lib} bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+
+
 def check_kernels(dev):
-    """Phase 3. Returns {name: row of the kernel table without launches}."""
-    from sage_icp_tpu_torch.ops import nn_kernels, policy_kernel
+    """Phase 3. Returns {name: row of the kernel table without launches}:
+    the NN, GN and policy rows at city shapes; the GN and policy kernels
+    are checked and timed at kitti shapes too, and printed."""
+    from sage_icp_tpu_torch.ops import nn_kernels, sort_kernel
 
     rng = np.random.default_rng(0)
     R, P, K, v = CITY["R"], CITY["P"], CITY["K"], CITY["voxel"]
     M = 27 * K
-    sem_th, scale, max_corr, kth = 0.4, v / 32767.0, 1.5, 0.5
     rows = {}
 
-    d = row_inputs(rng, dev)
-    cx, cy, cz, cl = d["planes"]
-    offx, offy, offz = d["offs"]
-    nn_args = (cx, cy, cz, cl, offx, offy, offz, d["q_local"], sem_th, scale)
+    d = row_inputs(rng, dev, CITY)
+    nn_args = (*d["planes"], *d["offs"], d["q_local"], GN_CONST["sem_th"], v / 32767.0)
     got = nn_kernels.fused_semantic_nn(*nn_args)
     want = nn_kernels.fused_semantic_nn_plain(*nn_args)
     torch.cuda.synchronize()
@@ -139,64 +262,73 @@ def check_kernels(dev):
         ms=time_ms(lambda: nn_kernels.fused_semantic_nn(*nn_args)),
         plain_ms=time_ms(lambda: nn_kernels.fused_semantic_nn_plain(*nn_args)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    rows["fused_gn_iteration"] = check_gn(d, CITY, dev)
+    rows["apply_policy"] = check_policy(rng, dev, CITY)
+    del d
+    # the kitti path's sizes, from their own seed
+    krng = np.random.default_rng(1)
+    print_row("fused_gn_iteration at kitti shapes", check_gn(row_inputs(krng, dev, KITTI), KITTI, dev))
+    print_row("apply_policy at kitti shapes", check_policy(krng, dev, KITTI))
 
-    tile_map = nn_kernels.default_tile_map(d["used"])
-    gn_args = (cx, cy, cz, cl, offx, offy, offz, d["q0"], d["origin"], d["row_abs"], d["used"], d["T"],
-               sem_th, scale, v, max_corr, kth)
-    got = nn_kernels.fused_gn_iteration(*gn_args, tile_map=tile_map)
-    terms = nn_kernels.gn_terms(*gn_args, tile_map)
-    want = terms.sum(dim=1)
+    R, P, M, r2 = (KITTI_FILTER[k] for k in ("VR", "P", "M", "r2"))
+    rargs = radius_inputs(rng, dev) + [r2]
+    got = nn_kernels.radius_count(*rargs)
+    want = nn_kernels.radius_count_plain(*rargs)
     torch.cuda.synchronize()
-    diff = (got - want).abs()
-    tol = GN_SUM_RTOL * terms.abs().sum(dim=1)
-    if not bool(torch.all(diff <= tol)):
-        fail(f"fused_gn_iteration disagrees with its plain version: {diff.tolist()} vs {tol.tolist()}")
-    if float(want[16]) <= 0 or float(got[17]) != float(want[17]):
-        fail("fused_gn_iteration: degenerate comparison (no accepted slot) or used-count mismatch")
-    live_rows = int((tile_map == torch.arange(len(tile_map), device=dev)).sum()) * nn_kernels.TILE_ROWS
-    live_rows = min(live_rows, R)
-    gn_bytes = live_rows * (4 * M * 2 + 4 * P * 4 + 3 * 4 + 3 * 4 + P * 4) + 3 * M * 4 + len(tile_map) * 4 + 18 * 4
-    b_ms, b_by = bound(gn_bytes, live_rows * M * (6 + 10 * P))
-    rows["fused_gn_iteration"] = dict(
-        route="cuda", source="sage_icp_tpu_torch/csrc/gn_iteration.cu",
-        replaces="sage_icp_tpu/ops/pallas_nn.py:286", max_abs_err=float(diff.max()),
-        ms=time_ms(lambda: nn_kernels.fused_gn_iteration(*gn_args, tile_map=tile_map)),
-        plain_ms=time_ms(lambda: nn_kernels.gn_terms(*gn_args, tile_map).sum(dim=1)),
+    if not torch.equal(got, want) or float(want.max()) <= 0:
+        fail("radius_count is not bit-exact against its plain version (or counted nothing)")
+    used = rargs[4]
+    live_rows = int((used != 0).any(dim=1).sum())
+    used_slots = int((used != 0).sum())
+    # what this data needs: candidates of the rows with a used slot, all
+    # queries, flags and counts; 9 operations per lane of a used slot
+    rc_bytes = live_rows * 3 * M * 4 + R * 3 * P * 4 + R * P * 4 + R * P * 4
+    b_ms, b_by = bound(rc_bytes, used_slots * M * 9)
+    rows["radius_count"] = dict(
+        route="cuda", source="sage_icp_tpu_torch/csrc/radius_count.cu",
+        replaces="sage_icp_tpu/ops/pallas_nn.py:426", max_abs_err=0.0,
+        ms=time_ms(lambda: nn_kernels.radius_count(*rargs)),
+        plain_ms=time_ms(lambda: nn_kernels.radius_count_plain(*rargs)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
-    U, Rm = CITY["U"], CITY["R_max"]
-    pargs, total_seg = policy_inputs(rng, dev)
-    got = policy_kernel.apply_policy(*pargs, basic=20)
-    want = policy_kernel.apply_policy_plain(*pargs, basic=20)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(got, want)):
-        fail("apply_policy is not bit-exact against its plain version")
-    pol_bytes = 2 * (4 * U * K * 2) + 2 * U * 4 + 4 * total_seg * 2 + U * 4
-    b_ms, b_by = bound(pol_bytes, total_seg * 10)
-    rows["apply_policy"] = dict(
-        route="cuda", source="sage_icp_tpu_torch/csrc/retention_policy.cu",
-        replaces="sage_icp_tpu/ops/pallas_insert.py:223", max_abs_err=0.0,
-        ms=time_ms(lambda: policy_kernel.apply_policy(*pargs, basic=20)),
-        plain_ms=time_ms(lambda: policy_kernel.apply_policy_plain(*pargs, basic=20)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    flags = (True, True, False)
+    for n in SORT_NS:
+        planes = sort_inputs(rng, n, dev)
+        got = sort_kernel.bitonic_sort_planes(planes, 3, flags)
+        want = sort_kernel.bitonic_sort_planes_plain(planes, 3, flags)
+        lib = sort_library(planes)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(got, want, lib)):
+            fail(f"bitonic_sort_planes is not bit-exact against its plain version at N = {n}")
+        if torch.equal(got[2], planes[2]):
+            fail(f"bitonic_sort_planes: degenerate check at N = {n} (input already sorted)")
+        if n != SORT_NS[-1]:
+            print(f"kernel bitonic_sort_planes at N = {n}: kernel "
+                  f"{time_ms(lambda: sort_kernel.bitonic_sort_planes(planes, 3, flags)):.4f} ms", flush=True)
+    b_ms, b_by = bound(len(planes) * n * 8, 0)
+    rows["bitonic_sort_planes"] = dict(
+        route="cuda", source="sage_icp_tpu_torch/csrc/bitonic_sort.cu",
+        replaces="sage_icp_tpu/ops/pallas_sort.py:133", max_abs_err=0.0,
+        ms=time_ms(lambda: sort_kernel.bitonic_sort_planes(planes, 3, flags)),
+        plain_ms=time_ms(lambda: sort_kernel.bitonic_sort_planes_plain(planes, 3, flags)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lambda: sort_library(planes)))
     for name, r in rows.items():
-        print(f"kernel {name}: max_abs_err {r['max_abs_err']} kernel {r['ms']:.4f} ms "
-              f"plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+        print_row(name, r)
     return rows
 
 
-def main_path(warmup: int, frames: int, extra: int):
-    """Phase 4. Returns (odom, scans, launches); `extra` more scans along
-    the trajectory follow the main path's."""
-    from sage_icp_tpu_torch.models.pipeline import SageICP
+def drive(name: str, odom, density: float, warmup: int, frames: int, extra: int):
+    """Phases 4 and 6: `odom` over the city world at `density` along
+    make_trajectory, scans from render_scan at n_target 120000. Returns
+    (scans, launches); `extra` more scans along the trajectory follow the
+    path's."""
     from sage_icp_tpu_torch.ops import cuda_lib
     from sage_icp_tpu_torch.utils import synthetic
 
-    pts, labs = synthetic.build_city_world(seed=0, size=420.0, density=0.7)
+    pts, labs = synthetic.build_city_world(seed=0, size=420.0, density=density)
     n = warmup + frames
     gt = synthetic.make_trajectory(n + extra, step=1.0)
     rng = np.random.default_rng(0)
-    odom = SageICP("city")
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         fail("TF32 is on: pose math must run in full float32")
     scans = [synthetic.render_scan(pts, labs, gt[i], rng, n_target=120_000,
@@ -224,17 +356,19 @@ def main_path(warmup: int, frames: int, extra: int):
     if not np.isfinite(ate) or ate >= 0.05:
         fail(f"ATE {ate} m over {n} frames")
     iters = sum(odom.icp_iters)
-    if launches["fused_gn_iteration"] != iters:
-        fail(f"GN launches {launches['fused_gn_iteration']} != ICP iterations {iters}")
-    if launches["apply_policy"] != n:
-        fail(f"policy launches {launches['apply_policy']} != frames with an insert {n}")
-    if launches["fused_semantic_nn"] != 0:
-        fail("the semantic NN kernel ran on the odometry step")
-    print(f"main path: {frames} timed frames in {elapsed:.4f} s = {frames / elapsed:.3f} scans/s, "
+    # every ICP iteration runs the GN kernel, every insert the policy
+    # kernel, every filtered frame the radius count; the NN kernel has its
+    # own path (phase 5) and the sort kernel its own check (phase 7)
+    expect = dict(fused_gn_iteration=iters, apply_policy=n, fused_semantic_nn=0, bitonic_sort_planes=0,
+                  radius_count=n if odom.config.dynamic_vehicle_filter else 0)
+    for kernel, count in expect.items():
+        if launches[kernel] != count:
+            fail(f"{name} path: {kernel} launched {launches[kernel]} times, expected {count}")
+    print(f"{name} path: {frames} timed frames in {elapsed:.4f} s = {frames / elapsed:.3f} scans/s, "
           f"{1e3 * elapsed / frames:.3f} ms/frame; ICP iterations {odom.icp_iters}; "
           f"ATE {ate:.5f} m; live voxels {int((odom.state.map.counts > 0).sum())}; "
           f"launches {launches}", flush=True)
-    return odom, scans, launches
+    return scans, launches
 
 
 def single_pass(odom, scan):
@@ -275,12 +409,63 @@ def single_pass(odom, scan):
     return launches
 
 
-def profile(odom, scans) -> None:
-    """Optional phase 6 (--profile): where the time of a city frame goes,
-    on the frames that follow the main path's. First the host phases of
-    the next frame, timed with a synchronise after each (the state held
-    fixed, repeated); then the device's busy share and its kernels by
-    total time from torch.profiler while the frames are registered."""
+def kitti_checks(odom, scan):
+    """Phase 7, after the kitti path, on its last frame preprocessed as the
+    step does: the filter's vehicle points in, kept and removed, and its
+    time; the filter on the card against the filter on the CPU (keep mask,
+    points and overflow bit for bit); the sort kernel on the filter's
+    vehicle sort keys (cell id, or 2^30 for other points, then the
+    position as an iota key, padded to 2^18 with sentinel keys) against
+    torch.sort(stable=True). Returns the sort kernel's launches there."""
+    from sage_icp_tpu_torch.ops import cuda_lib
+    from sage_icp_tpu_torch.ops import dynamic_filter as dyn
+    from sage_icp_tpu_torch.ops import scan as scan_ops
+    from sage_icp_tpu_torch.ops import sort_kernel
+
+    cfg, dev = odom.config, odom.device
+    buf = torch.full((cfg.scan_capacity, 4), scan_ops.INVALID_COORD)
+    buf[: len(scan)] = torch.from_numpy(scan)
+    buf = buf.to(dev)
+    pts, ok = scan_ops.preprocess(buf, buf[:, 0] < 1.0e6, cfg.max_range, cfg.min_range, cfg.label_max_range)
+
+    card = dyn.filter_dynamic_vehicles(pts, ok, cfg)
+    cpu = dyn.filter_dynamic_vehicles(pts.cpu(), ok.cpu(), cfg)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+    veh_key, _, vehicle = dyn.class_sort_keys(pts, ok, cfg)
+    v_in, v_kept = int(vehicle.sum()), int((vehicle & card[1]).sum())
+    filter_ms = time_ms(lambda: dyn.filter_dynamic_vehicles(pts, ok, cfg), reps=10)
+    print(f"kitti filter, last frame: vehicle points in {v_in}, kept {v_kept}, removed {v_in - v_kept}, "
+          f"overflow {int(card[2])}; of {int(ok.sum())} points {int(ok.sum()) - int(card[1].sum())} removed; "
+          f"card against CPU: {'equal' if same else 'DIFFERENT'}; filter {filter_ms:.4f} ms", flush=True)
+    if not same:
+        fail("the dynamic filter on the card disagrees with the filter on the CPU")
+    if v_in == 0 or int(card[2]) != 0:
+        fail("the kitti frame gave the filter no vehicle point, or overflowed it")
+
+    n = SORT_NS[-1]
+    pad = torch.full((n - len(veh_key),), torch.iinfo(torch.int32).max, dtype=torch.int32, device=dev)
+    key = torch.cat([veh_key, pad])
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    cuda_lib.reset_launches()
+    s_key, s_pos = sort_kernel.bitonic_sort_planes((key, pos), 2)
+    torch.cuda.synchronize()
+    launches = cuda_lib.LAUNCHES["bitonic_sort_planes"]
+    ref = torch.sort(key, stable=True)
+    if launches != 1 or not torch.equal(s_pos.long(), ref.indices) or not torch.equal(s_key, ref.values):
+        fail("bitonic_sort_planes on the filter's sort keys differs from torch.sort(stable=True)")
+    print(f"bitonic sort of the last frame's vehicle keys ({int((key < 2**30).sum())} members of {n}): "
+          f"permutation equals torch.sort(stable=True); kernel "
+          f"{time_ms(lambda: sort_kernel.bitonic_sort_planes((key, pos), 2)):.4f} ms, torch.sort "
+          f"{time_ms(lambda: torch.sort(key, stable=True)):.4f} ms", flush=True)
+    return launches
+
+
+def profile(name, odom, scans) -> None:
+    """Optional phase 8 (--profile): where the time of a frame goes, on
+    the frames that follow the path's. First the host phases of the next
+    frame, timed with a synchronise after each (the state held fixed,
+    repeated); then the device's busy share and its kernels by total time
+    from torch.profiler while the frames are registered."""
     from sage_icp_tpu_torch.models import pipeline as pl
     from sage_icp_tpu_torch.ops import geometry as geo
     from sage_icp_tpu_torch.ops import hashmap as hm
@@ -313,7 +498,7 @@ def profile(odom, scans) -> None:
         for k, dt in zip(phases, (t1 - t0, t2 - t1, t3 - t2)):
             phases[k] += dt
         iters += icp.iterations
-    print("profile host phases (ms/frame, state held fixed): "
+    print(f"{name} profile host phases (ms/frame, state held fixed): "
           + ", ".join(f"{k} {1e3 * v / n:.3f}" for k, v in phases.items())
           + f"; ICP iterations/frame {iters / n:.2f}", flush=True)
 
@@ -329,7 +514,7 @@ def profile(odom, scans) -> None:
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
     launches = sum(e.count for e in events)
-    print(f"profile: {n} frames, wall {1e3 * wall / n:.3f} ms/frame, device busy "
+    print(f"{name} profile: {n} frames, wall {1e3 * wall / n:.3f} ms/frame, device busy "
           f"{busy_us / 1e3 / n:.3f} ms/frame, idle share {1 - busy_us / 1e6 / wall:.4f}, "
           f"{launches / n:.1f} device ops/frame", flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
@@ -364,12 +549,24 @@ def main() -> int:
     if args.kernels_only:
         print(smi)
         return 0
+    from sage_icp_tpu_torch.models.pipeline import PRESETS, SageICP
+
     n = WARMUP + FRAMES
-    odom, scans, launches = main_path(WARMUP, FRAMES, 5 if args.profile else 0)
-    nn_launches = single_pass(odom, scans[n - 1])
-    launches["fused_semantic_nn"] = nn_launches
+    extra = 5 if args.profile else 0
+    city = SageICP("city")
+    city_scans, _ = drive("city", city, 0.7, WARMUP, FRAMES, extra)
+    nn_launches = single_pass(city, city_scans[n - 1])
+    kitti = SageICP()  # the default preset
+    if kitti.config != PRESETS["kitti"] or not kitti.config.dynamic_vehicle_filter:
+        fail("SageICP() is not the kitti preset with its dynamic filter")
+    kitti_scans, launches = drive("kitti", kitti, 1.3, WARMUP, FRAMES, extra)
+    sort_launches = kitti_checks(kitti, kitti_scans[n - 1])
     if args.profile:
-        profile(odom, scans[n:])
+        profile("city", city, city_scans[n:])
+        profile("kitti", kitti, kitti_scans[n:])
+    # launches: the kitti path's, the NN kernel's single-pass search and
+    # the sort kernel's check on the filter's keys
+    launches.update(fused_semantic_nn=nn_launches, bitonic_sort_planes=sort_launches)
     table = [dict(name=name, launches=launches[name], **row) for name, row in rows.items()]
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

@@ -2,17 +2,19 @@
 
 One step (odometry_step) runs, as in the reference's sageICP.cpp:
 
-    preprocess -> double class-adaptive voxel downsample -> adaptive
-    threshold -> constant-velocity prediction -> semantic ICP -> solve
-    health guard -> map insert -> distance cull
+    preprocess -> dynamic vehicle filter (when configured) -> double
+    class-adaptive voxel downsample -> adaptive threshold ->
+    constant-velocity prediction -> semantic ICP -> solve health guard ->
+    map insert -> distance cull
 
 on fixed-capacity tensors of one device, and SageICP wraps it with the
 host-side padding and the trajectory log. The configuration and presets
-are this package's own copy of the JAX reference's (field for field).
+are this package's own copy of the JAX reference's (field for field);
+SageICP() runs the default, the production `kitti` preset.
 
-Not in this package yet: deskew, the dynamic vehicle filter, the dense
-grid index, the int16 scan upload and the chunked step; a configuration
-that turns one of them on is refused (check_supported).
+Not in this package yet: deskew, the dense grid index, the int16 scan
+upload and the chunked step; a configuration that turns one of them on is
+refused (check_supported).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from sage_icp_tpu_torch.ops import correspondence_fast as cf
+from sage_icp_tpu_torch.ops import dynamic_filter as dyn
 from sage_icp_tpu_torch.ops import geometry as geo
 from sage_icp_tpu_torch.ops import hashmap as hm
 from sage_icp_tpu_torch.ops import registration as reg
@@ -232,6 +235,9 @@ def prepare_icp_inputs(state: OdomState, points, valid, config: SageConfig) -> d
     eye = _eye(dev)
     cropped, crop_valid = scan_ops.preprocess(
         points, valid, config.max_range, config.min_range, config.label_max_range)
+    dyn_overflow = _i32(0, dev)
+    if config.dynamic_vehicle_filter:
+        cropped, crop_valid, dyn_overflow = dyn.filter_dynamic_vehicles(cropped, crop_valid, config)
     (source, source_valid), (frame_ds, frame_valid), ds_trunc = voxelize(cropped, crop_valid, config)
 
     motion = scan_ops.norm3((geo.se3_inverse(state.first_pose) @ state.last_pose)[:3, 3])
@@ -254,7 +260,8 @@ def prepare_icp_inputs(state: OdomState, points, valid, config: SageConfig) -> d
         tables = cf.build_probe_tables(
             state.map, scan_ops.trunc_div(initial_guess[:3, 3], config.voxel_size_map), config.probe_depth)
     return dict(source=source, source_valid=source_valid, frame_ds=frame_ds, frame_valid=frame_valid,
-                sigma=sigma, thr=thr, initial_guess=initial_guess, tables=tables, ds_trunc=ds_trunc)
+                sigma=sigma, thr=thr, initial_guess=initial_guess, tables=tables, ds_trunc=ds_trunc,
+                dyn_overflow=dyn_overflow)
 
 
 def run_icp(map_state, prep: dict, config: SageConfig) -> reg.IcpResult:
@@ -281,7 +288,7 @@ def basic_label_mask(config: SageConfig, device, num_labels: int = 260) -> torch
 def check_supported(config: SageConfig) -> None:
     """Refuse the settings this package does not implement yet, rather
     than ignore them."""
-    missing = [name for name in ("deskew", "dynamic_vehicle_filter", "dense_grid", "quantized_scan_upload")
+    missing = [name for name in ("deskew", "dense_grid", "quantized_scan_upload")
                if getattr(config, name)]
     if missing:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
@@ -347,7 +354,7 @@ def odometry_step(state: OdomState, points, valid, config: SageConfig):
         insert_unique_overflow=ins.unique_overflow,
         insert_claim_failures=ins.claim_failures,
         insert_incoming_truncated=ins.incoming_truncated,
-        dynfilter_overflow=_i32(0, dev),
+        dynfilter_overflow=prep["dyn_overflow"],
         nonfinite_pose=(~pose_ok).to(torch.int32),
         icp_rejected=(pose_ok & ~healthy).to(torch.int32),
         icp_forced=forced.to(torch.int32),

@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("semantic_nn.cu", "gn_iteration.cu", "retention_policy.cu")
+SOURCES = ("semantic_nn.cu", "gn_iteration.cu", "retention_policy.cu", "radius_count.cu", "bitonic_sort.cu")
 
 # --fmad=false: no contraction of a*b+c into an FMA, so distances round
 # exactly as in the plain PyTorch versions (a near-tie would otherwise
@@ -40,6 +40,8 @@ LAUNCHES: dict[str, int] = {
     "fused_semantic_nn": 0,
     "fused_gn_iteration": 0,
     "apply_policy": 0,
+    "radius_count": 0,
+    "bitonic_sort_planes": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,15 +1,18 @@
-"""Semantic nearest-neighbour kernels over frozen correspondence rows:
-the CUDA kernels (csrc/semantic_nn.cu, csrc/gn_iteration.cu) and their
-plain PyTorch versions.
+"""Nearest-neighbour kernels over candidate rows: the CUDA kernels
+(csrc/semantic_nn.cu, csrc/gn_iteration.cu, csrc/radius_count.cu) and
+their plain PyTorch versions.
 
 They replace the TPU kernels sage_icp_tpu/ops/pallas_nn.py::
-fused_semantic_nn and ::fused_gn_iteration. A row (see
-correspondence_fast.corr_setup) holds M = 27 * K candidate lanes as int16
-voxel-local planes plus an int16 label plane (-1 = invalid lane), and P
-query slots. Per slot the selection takes the FIRST lane minimising the
-squared distance, scaled by sem_th where the labels match or either is 0;
-invalid lanes never beat a valid one. Coordinates are row-local (relative
-to the row's voxel origin), where float32 is exact enough.
+fused_semantic_nn, ::fused_gn_iteration and ::radius_count. A
+correspondence row (see correspondence_fast.corr_setup) holds M = 27 * K
+candidate lanes as int16 voxel-local planes plus an int16 label plane
+(-1 = invalid lane), and P query slots. Per slot the selection takes the
+FIRST lane minimising the squared distance, scaled by sem_th where the
+labels match or either is 0; invalid lanes never beat a valid one.
+Coordinates are row-local (relative to the row's voxel origin), where
+float32 is exact enough. radius_count (the dynamic-vehicle filter's
+landmark test) counts, per query slot, the float32 candidate lanes of its
+row within a radius.
 
 Each wrapper runs its plain version for CPU tensors and launches its
 kernel for CUDA tensors (or raises); there is no other switch.
@@ -34,6 +37,7 @@ _V = ctypes.c_void_p
 _I = ctypes.c_int
 _NN_ARGTYPES = [_V] * 8 + [_I, _I, _I, _F, _F] + [_V] * 6
 _GN_ARGTYPES = [_V] * 12 + [_I, _V, _I, _I, _I, _F, _F, _F, _F, _F, _V, _V, _V]
+_RC_ARGTYPES = [_V] * 5 + [_I, _I, _I, _F, _V, _V]
 
 
 def _check_rows(cx, cy, cz, cl, offx, offy, offz, P):
@@ -220,3 +224,45 @@ def assemble_normal_equations(sums: torch.Tensor):
     JTJ = torch.cat([torch.cat([ul, ur], dim=1), torch.cat([ur.T, lr], dim=1)], dim=0)
     JTr = torch.cat([sums[10:13], sums[13:16]])
     return JTJ, JTr, sums[16].to(torch.int32), sums[17].to(torch.int32)
+
+
+def radius_count(cx, cy, cz, queries, used, r2):
+    """cx/cy/cz (R, M) f32 candidate coordinates (a lane at >= 1e9 never
+    counts); queries (R, 3P) f32 packed [x y z]; used (R, P) int32 slot
+    flags. Returns (R, P) f32: per slot, the number of candidates of its
+    row with (dx*dx + dy*dy) + dz*dz <= r2, times used. Counts are
+    integers, so the kernel and the plain version agree bit for bit."""
+    if cuda_lib.on_cpu(cx):
+        return radius_count_plain(cx, cy, cz, queries, used, r2)
+    R, M = cx.shape
+    P = used.shape[1]
+    for name, t in (("cx", cx), ("cy", cy), ("cz", cz)):
+        cuda_lib.check_cuda(name, t, torch.float32, (R, M))
+    cuda_lib.check_cuda("queries", queries, torch.float32, (R, 3 * P))
+    cuda_lib.check_cuda("used", used, torch.int32, (R, P))
+    out = torch.empty((R, P), dtype=torch.float32, device=cx.device)
+    fn = cuda_lib.function("radius_count.cu", "sage_radius_count", _RC_ARGTYPES)
+    p = cuda_lib.ptr
+    cuda_lib.call(
+        "radius_count", fn,
+        p(cx), p(cy), p(cz), p(queries), p(used), R, M, P, float(r2), p(out),
+        cuda_lib.stream_ptr(cx.device),
+    )
+    return out
+
+
+def radius_count_plain(cx, cy, cz, queries, used, r2):
+    """One (R, M) compare per slot, as the TPU kernel body loops: a
+    broadcast to (R, P, M) would hold ~680 MB per temporary at the kitti
+    filter's shapes."""
+    P = used.shape[1]
+    r2 = torch.tensor(r2, dtype=torch.float32, device=cx.device)
+    outs = []
+    for p in range(P):
+        dx = cx - queries[:, 3 * p : 3 * p + 1]
+        dy = cy - queries[:, 3 * p + 1 : 3 * p + 2]
+        dz = cz - queries[:, 3 * p + 2 : 3 * p + 3]
+        d2 = dx * dx + dy * dy + dz * dz
+        cnt = (d2 <= r2).sum(dim=1, dtype=torch.int32).to(torch.float32)
+        outs.append(cnt * used[:, p].to(torch.float32))
+    return torch.stack(outs, dim=1)

@@ -1,20 +1,23 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
-version, the ICP solve against the port on the CPU, and the odometry
-step on the reference suite's trajectories (golden fixture, turn-stop-
-reverse maneuver, undersized capacities, a garbage scan). This file
-imports no JAX, so it runs where only PyTorch is installed
-(tests/conftest.py imports jax, hence --noconftest):
+version, the ICP solve and the dynamic-vehicle filter against the port on
+the CPU, and the odometry step on the reference suite's trajectories
+(golden fixture, turn-stop-reverse maneuver, undersized capacities, a
+garbage scan) and on the default `kitti` preset. This file imports no
+JAX, so it runs where only PyTorch is installed (tests/conftest.py
+imports jax, hence --noconftest):
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 
-Without a CUDA device every test skips. Tolerances: the retention policy
-and the semantic NN bit for bit; the GN sums within 1e-5 of the sum of
-their terms' magnitudes (only the summation order differs); poses within
-1e-4 of the CPU run; the golden trajectory within 0.02 m / 0.02; the
-maneuver ATE below 0.30 m and re-lock after a garbage scan within
-0.25 m, as in tests/test_robustness.py.
+Without a CUDA device every test skips. Tolerances: the retention policy,
+the semantic NN, the radius count and the bitonic sort bit for bit; the
+filter's keep mask and overflow bit for bit; the GN sums within 1e-5 of
+the sum of their terms' magnitudes (only the summation order differs);
+poses within 1e-4 of the CPU run; the golden trajectory within
+0.02 m / 0.02; the maneuver ATE below 0.30 m and re-lock after a garbage
+scan within 0.25 m, as in tests/test_robustness.py.
 
-The seeded input builders here are shared with tests/test_torch_kernels.py.
+The seeded input builders here are shared with tests/test_torch_kernels.py
+and tests/test_torch_dynfilter.py.
 """
 
 import pathlib
@@ -25,10 +28,12 @@ import torch
 
 from sage_icp_tpu_torch.models import pipeline as tpl
 from sage_icp_tpu_torch.ops import correspondence_fast as tcf
-from sage_icp_tpu_torch.ops import cuda_lib, nn_kernels, policy_kernel
+from sage_icp_tpu_torch.ops import cuda_lib, nn_kernels, policy_kernel, sort_kernel
+from sage_icp_tpu_torch.ops import dynamic_filter as tdyn
 from sage_icp_tpu_torch.ops import geometry as tgeo
 from sage_icp_tpu_torch.ops import hashmap as thm
 from sage_icp_tpu_torch.ops import registration as treg
+from sage_icp_tpu_torch.ops import scan as tscan
 from sage_icp_tpu_torch.utils import synthetic
 
 VOXEL = 1.0
@@ -101,6 +106,93 @@ def gn_fixture(n=2000, seed=0):
     frame = world.copy()
     frame[:, :3] = frame[:, :3] @ Tinv[:3, :3].T + Tinv[:3, 3]
     return world, frame
+
+
+def radius_rows(seed, R=512, P=48, M=27 * 32):
+    """Seeded radius-count rows: queries on a 2^-10 m grid, candidates
+    around them, lanes exactly 0.5 m from a query along an axis (d2 == r2
+    without rounding), 1e9 sentinel lanes, unused slots and dead rows."""
+    rng = np.random.default_rng(seed)
+    dy = lambda a: np.round(a * 1024.0) / 1024.0
+    center = dy(rng.uniform(-40.0, 40.0, (R, 1, 3)))
+    q = (center + dy(rng.uniform(-0.25, 0.25, (R, P, 3)))).astype(np.float32)
+    cand = (center + rng.uniform(-0.75, 0.75, (R, M, 3))).astype(np.float32)
+    for lane in range(12):
+        axis, sign = lane % 3, 1.0 if lane % 2 else -1.0
+        cand[:, lane] = q[:, lane % P]
+        cand[:, lane, axis] += np.float32(0.5 * sign)
+    cand[rng.random((R, M)) < 0.3] = 1.0e9
+    used = (rng.random((R, P)) < 0.7).astype(np.int32)
+    used[1::2] = 0  # dead rows
+    c = np.ascontiguousarray
+    return [c(cand[..., 0]), c(cand[..., 1]), c(cand[..., 2]), q.reshape(R, 3 * P), used]
+
+
+def sort_planes(seed, n, unsigned):
+    """Two heavily duplicated keys (uint32 with the high bit set, or int32
+    of both signs), an iota key and a float32 payload, as numpy arrays;
+    uint32 keys as their int32 view."""
+    rng = np.random.default_rng(seed)
+    if unsigned:
+        k1 = rng.choice(np.array([0, 1, 5, 2**31 - 1, 2**31, 2**32 - 1], np.uint64), n).astype(np.uint32)
+        k2 = rng.integers(0, 5, n).astype(np.uint32) << np.uint32(29)
+        k1, k2 = k1.view(np.int32), k2.view(np.int32)
+    else:
+        k1 = rng.choice(np.array([-(2**31), -7, 0, 3, 2**31 - 1], np.int32), n)
+        k2 = rng.integers(-2, 3, n).astype(np.int32)
+    return [k1, k2, np.arange(n, dtype=np.int32), rng.normal(size=n).astype(np.float32)]
+
+
+def pad_scan(pts, cap):
+    """(cap, 4) buffer with INVALID_COORD padding, and its valid mask."""
+    buf = np.full((cap, 4), tscan.INVALID_COORD, np.float32)
+    buf[: len(pts)] = pts
+    valid = np.zeros(cap, dtype=bool)
+    valid[: len(pts)] = True
+    return buf, valid
+
+
+def parked_moving_scan(cap=16384):
+    """tests/test_metrics_runtime.py's fixture: a parked car on a dense
+    parking-labelled patch and a moving car on the road, label 10."""
+    rng = np.random.default_rng(0)
+    n_car, n_park = 80, 800
+    col = lambda lo, hi, n: rng.uniform(lo, hi, n)
+    parked = np.stack([col(10, 13, n_car), col(4.2, 5.8, n_car), col(0.1, 0.4, n_car), np.full(n_car, 10.0)], 1)
+    lot = np.stack([col(9, 14, n_park), col(3.8, 6.2, n_park), col(-0.05, 0.25, n_park), np.full(n_park, 44.0)], 1)
+    moving = np.stack([col(30, 33, n_car), col(-1, 1, n_car), col(0.3, 1.4, n_car), np.full(n_car, 10.0)], 1)
+    road = np.stack([col(25, 40, n_park), col(-4, 4, n_park), col(-0.05, 0.05, n_park), np.full(n_park, 40.0)], 1)
+    return pad_scan(np.concatenate([parked, lot, moving, road]).astype(np.float32), cap)
+
+
+def crowded_cell_scan(cap=16384):
+    """A parked car with 60 points in one 0.5 m cell (more than the 48
+    query slots of a cell row) and five car points 20 m up (outside the
+    grid's z span): both kinds count in the filter's overflow."""
+    rng = np.random.default_rng(7)
+    u = lambda lo, hi, n: rng.uniform(lo, hi, n)
+    crowd = np.stack([u(10.05, 10.45, 60), u(4.05, 4.45, 60), u(0.55, 0.95, 60), np.full(60, 10.0)], 1)
+    car = np.stack([u(9, 12, 120), u(3.6, 5.2, 120), u(0.1, 1.4, 120), np.full(120, 13.0)], 1)
+    lot = np.stack([u(8, 13, 700), u(3, 6, 700), u(-0.05, 0.2, 700), np.full(700, 48.0)], 1)
+    up = np.stack([u(5, 6, 5), u(1, 2, 5), np.full(5, 20.2), np.full(5, 10.0)], 1)
+    return pad_scan(np.concatenate([crowd, car, lot, up]).astype(np.float32), cap)
+
+
+def kitti_world():
+    """The kitti-scale drive of chip_smoke.py: the city world at density
+    1.3 along make_trajectory."""
+    return synthetic.build_city_world(seed=0, size=420.0, density=1.3)
+
+
+def city_frame(world, frame=11, crop=None):
+    """Scan `frame` of the drive (render_scan at n_target 120000, seeded
+    by the frame index); with crop=(hx, hy) only |x| < hx, |y| < hy."""
+    pts, labs = world
+    gt = synthetic.make_trajectory(frame + 1, step=1.0)
+    scan = synthetic.render_scan(pts, labs, gt[frame], np.random.default_rng(frame), n_target=120_000)
+    if crop is not None:
+        scan = scan[(np.abs(scan[:, 0]) < crop[0]) & (np.abs(scan[:, 1]) < crop[1])]
+    return scan
 
 
 @pytest.fixture
@@ -252,3 +344,64 @@ def test_recovers_from_garbage_scan_on_card(card, small_city):
     assert [i for i, a in enumerate(auxes) if int(a.icp_rejected) or int(a.nonfinite_pose)] == [bad]
     for i in range(bad + 1, len(gt)):
         assert np.linalg.norm(est[i][:3, 3] - (gt[i][:3, 3] - gt[0][:3, 3])) < 0.25
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 8, 48])
+def test_radius_count_kernel_matches_plain(card, P):
+    """At the kitti filter's shapes: 4,096 rows of 864 lanes."""
+    args = [t(a).to(card) for a in radius_rows(6, R=4096, P=P)] + [0.25]
+    cuda_lib.reset_launches()
+    got = nn_kernels.radius_count(*args)
+    assert cuda_lib.LAUNCHES["radius_count"] == 1
+    want = nn_kernels.radius_count_plain(*args)
+    assert torch.equal(got, want)
+    assert float(want.max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unsigned", [False, True])
+@pytest.mark.parametrize("n", [256, 2**16, 2**18])
+def test_bitonic_kernel_matches_plain(card, n, unsigned):
+    planes = [t(a).to(card) for a in sort_planes(8, n, unsigned)]
+    flags = (unsigned, unsigned, False)
+    got = sort_kernel.bitonic_sort_planes(planes, 3, flags)
+    want = sort_kernel.bitonic_sort_planes_plain(planes, 3, flags)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # the inputs are untouched
+    assert torch.equal(planes[2], torch.arange(n, dtype=torch.int32, device=card))
+
+
+@pytest.mark.cuda
+def test_dynamic_filter_on_card_matches_cpu(card):
+    """One kitti-capacity frame, preprocessed as the step does."""
+    cfg = tpl.PRESETS["kitti"]
+    buf, valid = pad_scan(city_frame(kitti_world()), cfg.scan_capacity)
+    out = []
+    for dev in ("cpu", card):
+        pts, ok = tscan.preprocess(t(buf).to(dev), t(valid).to(dev), cfg.max_range, cfg.min_range,
+                                   cfg.label_max_range)
+        out.append([a.cpu() for a in tdyn.filter_dynamic_vehicles(pts, ok, cfg)])
+    assert torch.equal(out[1][1], out[0][1])
+    assert torch.equal(out[1][0], out[0][0])
+    assert int(out[1][2]) == int(out[0][2])
+
+
+@pytest.mark.cuda
+def test_kitti_default_preset_on_card(card):
+    """SageICP() is the production kitti preset: five frames of the
+    kitti-scale drive, the filter's kernel once per frame, no drop."""
+    world = kitti_world()
+    odom = tpl.SageICP()
+    assert odom.config == tpl.PRESETS["kitti"] and odom.device.type == "cuda"
+    cuda_lib.reset_launches()
+    gt = synthetic.make_trajectory(5, step=1.0)
+    rng = np.random.default_rng(0)
+    for i in range(5):
+        odom.register_frame(synthetic.render_scan(*world, gt[i], rng, n_target=120_000))
+    assert int(odom.aux_totals().overflow_total()) == 0
+    assert cuda_lib.LAUNCHES["radius_count"] == 5
+    assert cuda_lib.LAUNCHES["apply_policy"] == 5
+    g0 = np.linalg.inv(gt[0])
+    err = [np.linalg.norm(e[:3, 3] - (g0 @ g)[:3, 3]) for e, g in zip(odom.trajectory(), gt)]
+    assert max(err) < 0.05

@@ -1,0 +1,130 @@
+"""The port's dynamic-vehicle filter, its radius-count kernel and the
+bitonic sort kernel against the JAX package, on the CPU.
+
+The JAX side runs the Pallas kernels in interpret mode and its filter
+jitted; the port runs the kernels' plain versions. Everything compared
+here is integers or selected points: the radius counts, the sorted
+planes, the filter's keep mask, points and overflow, and the step's
+downsampled source and frame points, all bit for bit. The CUDA kernels
+are held against the plain versions on the card by
+tests/test_torch_cuda.py."""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sage_icp_tpu.models import pipeline as jpl
+from sage_icp_tpu.ops import dynamic_filter as jdyn
+from sage_icp_tpu.ops import pallas_nn as jpn
+from sage_icp_tpu.ops import pallas_sort as jps
+from sage_icp_tpu_torch.models import pipeline as tpl
+from sage_icp_tpu_torch.ops import dynamic_filter as tdyn
+from sage_icp_tpu_torch.ops import nn_kernels, sort_kernel
+from sage_icp_tpu_torch.ops import scan as tscan
+from tests.test_robustness import small_config
+from tests.test_torch_cuda import (city_frame, crowded_cell_scan, kitti_world, pad_scan, parked_moving_scan,
+                                   radius_rows, sort_planes, t)
+
+CAP = 16384
+VEHICLE = (10, 11, 13, 15, 16, 18, 20)
+# one compile for every case: the filter reads no capacity of the config
+_jax_filter = jax.jit(functools.partial(jdyn.filter_dynamic_vehicles, config=jpl.SageConfig(), with_stats=True))
+
+
+@pytest.fixture(scope="module")
+def city_scan():
+    """A kitti-scale frame cropped to the 16,384-point test capacity
+    around a parked car the filter keeps."""
+    return city_frame(kitti_world(), crop=(14.0, 12.0))
+
+
+@pytest.mark.parametrize("P", [1, 48])
+def test_radius_count_plain_matches_pallas(P):
+    args = radius_rows(1, R=512, P=P)
+    want = np.asarray(jpn.radius_count(*[jnp.asarray(a) for a in args], 0.25, interpret=True))
+    got = nn_kernels.radius_count(*[t(a) for a in args], 0.25).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert want.max() > 0 and (want == 0).any()
+
+
+@pytest.mark.parametrize("n", [256, 2048])
+def test_bitonic_plain_matches_pallas(n):
+    """tests/test_pallas_sort.py's case: two duplicated uint32 keys, an
+    iota key, a float payload."""
+    planes = sort_planes(2, n, unsigned=True)
+    jplanes = [jnp.asarray(p.view(np.uint32)) for p in planes[:2]] + [jnp.asarray(p) for p in planes[2:]]
+    want = jps.bitonic_sort_planes(tuple(jplanes), num_keys=3, interpret=True)
+    got = sort_kernel.bitonic_sort_planes([t(p) for p in planes], 3, unsigned=(True, True, False))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy().view(np.asarray(w).dtype), np.asarray(w))
+    assert not np.array_equal(got[2].numpy(), planes[2])
+
+
+def test_filter_refuses_grid_beyond_float32_ids():
+    """Cell ids pool in float32, exact below 2^24 cells: 179 m fits, 180 m
+    is refused rather than clustered differently from JAX."""
+    assert tdyn._grid_nx(179.0) ** 2 * 32 < 2**24 <= tdyn._grid_nx(180.0) ** 2 * 32
+    buf, valid = parked_moving_scan(2048)
+    cfg = dataclasses.replace(tpl.PRESETS["kitti"], label_max_range=180.0)
+    with pytest.raises(ValueError, match="2\\^24"):
+        tdyn.filter_dynamic_vehicles(t(buf), t(valid), cfg)
+
+
+def run_both(buf, valid):
+    jp, jv, jo = _jax_filter(jnp.asarray(buf), jnp.asarray(valid))
+    tp, tv, to = tdyn.filter_dynamic_vehicles(t(buf), t(valid), tpl.PRESETS["kitti"])
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    assert int(to) == int(jo)
+    return tv.numpy(), int(to)
+
+
+def preprocessed(scan, cfg):
+    buf, valid = pad_scan(scan, CAP)
+    pts, ok = tscan.preprocess(t(buf), t(valid), cfg.max_range, cfg.min_range, cfg.label_max_range)
+    return pts.numpy(), ok.numpy()
+
+
+def test_filter_matches_jax_parked_and_moving():
+    """The JAX suite's decision: the parked car kept, the moving removed."""
+    buf, valid = parked_moving_scan(CAP)
+    keep, overflow = run_both(buf, valid)
+    labs, xs = buf[:, 3].astype(int), buf[:, 0]
+    assert keep[(labs == 10) & (xs < 20) & valid].mean() > 0.9
+    assert keep[(labs == 10) & (xs > 20) & valid].mean() < 0.1
+    assert keep[(labs != 10) & valid].all() and overflow == 0
+
+
+def test_filter_matches_jax_city_scan(city_scan):
+    pts, ok = preprocessed(city_scan, tpl.PRESETS["kitti"])
+    keep, overflow = run_both(pts, ok)
+    vehicle = ok & np.isin(pts[:, 3].astype(int), VEHICLE)
+    assert 0 < (vehicle & keep).sum() < vehicle.sum() and overflow == 0
+
+
+def test_filter_matches_jax_slot_overflow():
+    buf, valid = crowded_cell_scan(CAP)
+    _, overflow = run_both(buf, valid)
+    assert overflow >= 12 + 5
+
+
+def test_prepare_icp_inputs_with_filter_matches_jax(city_scan):
+    """The slice before the solve, from the initial state: preprocess,
+    the filter, the double downsample. At the kitti min_range of 5 m the
+    parked car's cluster is kept (from 1 m, nearer car points join it and
+    it is removed)."""
+    jcfg = small_config(dynamic_vehicle_filter=True, min_range=5.0)
+    tcfg = tpl.SageConfig(**dataclasses.asdict(jcfg))
+    buf, valid = pad_scan(city_scan, jcfg.scan_capacity)
+    prepare = jax.jit(functools.partial(jpl.prepare_icp_inputs, config=jcfg))
+    want = prepare(jpl.init_state(jcfg), jnp.asarray(buf), jnp.asarray(valid), jnp.zeros(len(buf), jnp.float32))
+    got = tpl.prepare_icp_inputs(tpl.init_state(tcfg, "cpu"), t(buf), t(valid), tcfg)
+    for name in ("source", "source_valid", "frame_ds", "frame_valid", "ds_trunc", "dyn_overflow"):
+        np.testing.assert_array_equal(got[name].numpy(), np.asarray(want[name]), err_msg=name)
+    frame_labels = got["frame_ds"][got["frame_valid"], 3].to(torch.int32).numpy()
+    assert np.isin(frame_labels, VEHICLE).any()

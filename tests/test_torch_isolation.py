@@ -31,7 +31,8 @@ def test_port_modules_and_chip_smoke_import_without_jax():
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
     assert out.returncode == 0, out.stderr
-    assert len(MODULES) >= 10
+    assert len(MODULES) >= 12
+    assert {"sage_icp_tpu_torch.ops.dynamic_filter", "sage_icp_tpu_torch.ops.sort_kernel"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PACKAGE.rglob("*.py"))
@@ -51,10 +52,28 @@ def test_sage_icp_without_device_needs_a_card(monkeypatch):
     assert SageICP("city", device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("setting", ["deskew", "dynamic_vehicle_filter", "dense_grid", "quantized_scan_upload"])
+@pytest.mark.parametrize("setting", ["deskew", "dense_grid", "quantized_scan_upload"])
 def test_unported_settings_are_refused(setting):
     from sage_icp_tpu_torch.models.pipeline import PRESETS, SageICP
 
     config = dataclasses.replace(PRESETS["synthetic"], **{setting: True})
     with pytest.raises(NotImplementedError, match=setting):
         SageICP(config, device="cpu")
+
+
+def test_kitti_preset_runs_its_dynamic_filter():
+    """SageICP() is the kitti preset, dynamic filter on; its prepare step
+    removes a moving car and keeps a parked one, without overflow."""
+    from sage_icp_tpu_torch.models import pipeline as tpl
+    from tests.test_torch_cuda import parked_moving_scan
+
+    odom = tpl.SageICP("kitti", device="cpu")
+    assert odom.config == tpl.SageICP(device="cpu").config == tpl.PRESETS["kitti"]
+    assert odom.config.dynamic_vehicle_filter
+    buf, valid = parked_moving_scan(odom.config.scan_capacity)
+    pts, ok = torch.from_numpy(buf), torch.from_numpy(valid)
+    prep = tpl.prepare_icp_inputs(odom.state, pts, ok, odom.config)
+    assert int(prep["dyn_overflow"]) == 0
+    frame = prep["frame_ds"][prep["frame_valid"]]
+    car = frame[frame[:, 3] == 10.0]
+    assert len(car) > 0 and bool((car[:, 0] < 20.0).all())
