@@ -1,6 +1,12 @@
 """End-to-end check of sage_icp_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py [--kernels-only] [--profile]
+    python3 chip_smoke.py --root DIR
+
+With --root, only the kernel times of the port checked out at DIR (the
+parent commit unpacked with `git archive`, say) are taken, at phase 3's
+shapes on phase 3's inputs, and printed as one JSON line; nothing is
+checked. Run it on both trees in one call to compare them.
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -9,11 +15,15 @@ Phases, each fatal on failure:
      seeded inputs: at the city preset's shapes the semantic NN outputs
      equal; at the city and the kitti preset's shapes the retention
      policy bit for bit and the GN sums within 1e-4 of the sum of their
-     terms' magnitudes (only the summation order differs); at the kitti
-     filter's shapes the radius count bit for bit;
-     the bitonic sort bit for bit at N = 2^16 and 2^18 (two uint32 keys,
-     an iota key, a float32 payload). Kernel, plain and library times are
-     CUDA-event medians of 20 calls;
+     terms' magnitudes (only the summation order differs), deterministic
+     and in one launch; at the kitti filter's shapes the radius count bit
+     for bit; the bitonic sort bit for bit at N = 2^16 and 2^18 (two
+     uint32 keys, an iota key, a float32 payload) against the stable sort
+     and the network run stage by stage, and at 2^18 on tied keys (no iota
+     key) against the network, with its launches per call. Kernel, plain
+     and library times are device times (time_ms: calls queued back to
+     back behind a spacer kernel, CUDA events, the median of 5 batches of
+     20);
   4. the city path: SageICP("city") over the Manhattan city world at
      density 0.7, 10 warm-up and 30 timed frames; no silent drop over all
      frames, ATE < 0.05 m, and launch counts showing that every ICP
@@ -39,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -65,20 +76,55 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Median CUDA-event time of one call, after two warm-up calls."""
+SPACER_CYCLES = 20_000_000  # ~10 ms of torch.cuda._sleep: the host queues a batch meanwhile
+
+
+def time_ms(fn, reps: int = 20, batches: int = 5) -> float:
+    """Device time of one call in ms: after two warm-up calls, `batches`
+    batches of `reps` calls, each batch queued behind a spacer kernel so
+    that the host's enqueue time is hidden (the calls run back to back on
+    the card); the median of the batch means. A call that synchronises
+    inside shows the host time after its sync too."""
     for _ in range(2):
         fn()
+    torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(batches):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPACER_CYCLES)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
+
+
+def kernel_ms(fn, reps: int = 20) -> float:
+    """Device time of one call in ms from torch.profiler: the summed
+    durations of the kernels that `reps` calls launch (copies and memsets
+    not counted), over reps. A call's host work and synchronisations do
+    not count, so a wrapper that synchronises inside is timed as fairly as
+    one that does not."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")  # opens the window: the profiler may miss its first kernel
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    if events and "FillFunctor" in events[0].name:
+        events = events[1:]
+    kernels = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
 
 
 def bound(n_bytes: float, n_flops: float):
@@ -107,10 +153,11 @@ def row_inputs(rng, dev, shape):
     q_world = np.concatenate([local + origin[:, None, :], qlab], axis=-1).reshape(R, 4 * P)
     used = (rng.random((R, P)) < 0.8).astype(np.int32)
     used[shape["live"]:] = 0  # rows past the demand: whole dead tiles
+    # the increment on the host, as the ICP loop passes it
     T = geo.se3_exp(torch.tensor([0.02, -0.01, 0.005, 0.001, -0.002, 0.003]))
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     return dict(planes=planes + [cl], offs=offs, q_local=t(q_local), q0=t(q_world), origin=t(origin),
-                row_abs=t(row_abs), used=t(used), T=T.to(dev))
+                row_abs=t(row_abs), used=t(used), T=T)
 
 
 def policy_inputs(rng, dev, shape):
@@ -176,14 +223,19 @@ GN_CONST = dict(sem_th=0.4, max_corr=1.5, kth=0.5)
 def check_gn(d, shape, dev):
     """The GN kernel against its plain version on rows `d` of `shape`: the
     sums within GN_SUM_RTOL of the sum of their terms' magnitudes (only
-    the summation order differs), the used count equal. Returns its row."""
-    from sage_icp_tpu_torch.ops import nn_kernels
+    the summation order differs), the used count equal, one launch per
+    call, the same sums on a second call. Returns its row."""
+    from sage_icp_tpu_torch.ops import cuda_lib, nn_kernels
 
     R, P, M, v = shape["R"], shape["P"], 27 * shape["K"], shape["voxel"]
     tile_map = nn_kernels.default_tile_map(d["used"])
     gn_args = (*d["planes"], *d["offs"], d["q0"], d["origin"], d["row_abs"], d["used"], d["T"],
                GN_CONST["sem_th"], v / 32767.0, v, GN_CONST["max_corr"], GN_CONST["kth"])
+    cuda_lib.reset_launches()
     got = nn_kernels.fused_gn_iteration(*gn_args, tile_map=tile_map)
+    again = nn_kernels.fused_gn_iteration(*gn_args, tile_map=tile_map)
+    if cuda_lib.LAUNCHES["fused_gn_iteration"] != 2 or not torch.equal(got, again):
+        fail(f"fused_gn_iteration at {shape['name']} shapes: not one launch per call, or not deterministic")
     terms = nn_kernels.gn_terms(*gn_args, tile_map)
     want = terms.sum(dim=1)
     torch.cuda.synchronize()
@@ -197,6 +249,9 @@ def check_gn(d, shape, dev):
              "or used-count mismatch")
     live_rows = int((tile_map == torch.arange(len(tile_map), device=dev)).sum()) * nn_kernels.TILE_ROWS
     live_rows = min(live_rows, R)
+    print(f"fused_gn_iteration at {shape['name']} shapes: {nn_kernels.gn_load_bytes(M)}-byte loads, "
+          f"{min(nn_kernels.GN_MAX_BLOCKS, -(-R // 8))} blocks of 8 warps, {live_rows} live rows of {R}",
+          flush=True)
     gn_bytes = live_rows * (4 * M * 2 + 4 * P * 4 + 3 * 4 + 3 * 4 + P * 4) + 3 * M * 4 + len(tile_map) * 4 + 18 * 4
     b_ms, b_by = bound(gn_bytes, live_rows * M * (6 + 10 * P))
     return dict(
@@ -296,15 +351,27 @@ def check_kernels(dev):
         planes = sort_inputs(rng, n, dev)
         got = sort_kernel.bitonic_sort_planes(planes, 3, flags)
         want = sort_kernel.bitonic_sort_planes_plain(planes, 3, flags)
+        net = sort_kernel.bitonic_network_plain(planes, 3, flags)
         lib = sort_library(planes)
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(got, want, lib)):
-            fail(f"bitonic_sort_planes is not bit-exact against its plain version at N = {n}")
+        if not all(torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
+                   for a, b, c, d in zip(got, want, lib, net)):
+            fail(f"bitonic_sort_planes is not bit-exact against its plain versions at N = {n}")
         if torch.equal(got[2], planes[2]):
             fail(f"bitonic_sort_planes: degenerate check at N = {n} (input already sorted)")
-        if n != SORT_NS[-1]:
-            print(f"kernel bitonic_sort_planes at N = {n}: kernel "
-                  f"{time_ms(lambda: sort_kernel.bitonic_sort_planes(planes, 3, flags)):.4f} ms", flush=True)
+        print(f"kernel bitonic_sort_planes at N = {n}, 4 planes: {sort_kernel.bitonic_launches(n, 3)} "
+              f"launches per call, {time_ms(lambda: sort_kernel.bitonic_sort_planes(planes, 3, flags)):.4f} ms",
+              flush=True)
+    # tied composite keys (no iota key): the network's copy-over, bit for bit
+    tied = [planes[0], planes[1], planes[2], planes[3]]
+    got = sort_kernel.bitonic_sort_planes(tied, 2, flags[:2])
+    net = sort_kernel.bitonic_network_plain(tied, 2, flags[:2])
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, net)):
+        fail(f"bitonic_sort_planes on tied keys differs from the network at N = {n}")
+    print(f"bitonic_sort_planes on tied keys at N = {n}: equal to the network; "
+          f"{int((got[2] == torch.arange(n, device=dev, dtype=torch.int32)).sum())} positions hold their "
+          f"own index, {n - int(torch.unique(got[2]).numel())} payloads lost to copy-over", flush=True)
     b_ms, b_by = bound(len(planes) * n * 8, 0)
     rows["bitonic_sort_planes"] = dict(
         route="cuda", source="sage_icp_tpu_torch/csrc/bitonic_sort.cu",
@@ -315,6 +382,45 @@ def check_kernels(dev):
     for name, r in rows.items():
         print_row(name, r)
     return rows
+
+
+def time_tree(dev) -> dict:
+    """--root: the kernels of the port at --root on phase 3's inputs (the
+    same seeds and shapes), each timed with time_ms and kernel_ms. Only
+    the wrapper interfaces that every slice of the port shares are called;
+    nothing is checked. T goes to the GN wrapper on the host, as the ICP
+    loop passes it."""
+    from sage_icp_tpu_torch.ops import nn_kernels, policy_kernel, sort_kernel
+
+    times = {}
+
+    def record(name, fn):
+        times[name] = dict(ms=time_ms(fn), kernel_ms=kernel_ms(fn))
+        print(f"{name}: time_ms {times[name]['ms']:.4f}, kernel_ms {times[name]['kernel_ms']:.4f}", flush=True)
+
+    rng = np.random.default_rng(0)
+    for shape, seeded in ((CITY, rng), (KITTI, np.random.default_rng(1))):
+        d = row_inputs(seeded, dev, shape)
+        v = shape["voxel"]
+        tile_map = nn_kernels.default_tile_map(d["used"])
+        gn_args = (*d["planes"], *d["offs"], d["q0"], d["origin"], d["row_abs"], d["used"], d["T"],
+                   GN_CONST["sem_th"], v / 32767.0, v, GN_CONST["max_corr"], GN_CONST["kth"])
+        if shape is CITY:
+            nn_args = (*d["planes"], *d["offs"], d["q_local"], GN_CONST["sem_th"], v / 32767.0)
+            record("fused_semantic_nn city", lambda: nn_kernels.fused_semantic_nn(*nn_args))
+        record(f"fused_gn_iteration {shape['name']}", lambda: nn_kernels.fused_gn_iteration(*gn_args, tile_map=tile_map))
+        del d
+        pargs, _ = policy_inputs(seeded, dev, shape)
+        record(f"apply_policy {shape['name']}", lambda: policy_kernel.apply_policy(*pargs, basic=20))
+    rargs = radius_inputs(rng, dev) + [KITTI_FILTER["r2"]]
+    record("radius_count kitti filter", lambda: nn_kernels.radius_count(*rargs))
+    flags = (True, True, False)
+    for n in SORT_NS:
+        planes = sort_inputs(rng, n, dev)
+        record(f"bitonic_sort_planes 2^{n.bit_length() - 1} x 4",
+               lambda: sort_kernel.bitonic_sort_planes(planes, 3, flags))
+    record("library 2^18 x 4 (packed torch.sort + gathers)", lambda: sort_library(planes))
+    return times
 
 
 def drive(name: str, odom, density: float, warmup: int, frames: int, extra: int):
@@ -455,7 +561,8 @@ def kitti_checks(odom, scan):
         fail("bitonic_sort_planes on the filter's sort keys differs from torch.sort(stable=True)")
     print(f"bitonic sort of the last frame's vehicle keys ({int((key < 2**30).sum())} members of {n}): "
           f"permutation equals torch.sort(stable=True); kernel "
-          f"{time_ms(lambda: sort_kernel.bitonic_sort_planes((key, pos), 2)):.4f} ms, torch.sort "
+          f"{time_ms(lambda: sort_kernel.bitonic_sort_planes((key, pos), 2)):.4f} ms in "
+          f"{sort_kernel.bitonic_launches(n, 2)} launches, torch.sort "
           f"{time_ms(lambda: torch.sort(key, stable=True)):.4f} ms", flush=True)
     return launches
 
@@ -526,7 +633,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true", help="stop after phase 3")
     ap.add_argument("--profile", action="store_true", help="also break a frame's time down")
+    ap.add_argument("--root", default=None, help="only time the kernels of the port checked out here")
     args = ap.parse_args()
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
 
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
@@ -539,12 +649,19 @@ def main() -> int:
 
     from sage_icp_tpu_torch.ops import cuda_lib
 
+    if args.root:
+        print(f"kernels of {os.path.dirname(cuda_lib.__file__)}", flush=True)
     build_s = cuda_lib.build_all()
     print(f"build: {build_s:.2f} s", flush=True)
     for src, log in cuda_lib.BUILD_LOG.items():
         used = [ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
         print(f"nvcc {src}: " + " | ".join(used), flush=True)
 
+    if args.root:
+        times = time_tree(dev)
+        print(smi, flush=True)
+        print(json.dumps({"root": args.root, "card": smi, "times": times}), flush=True)
+        return 0
     rows = check_kernels(dev)
     if args.kernels_only:
         print(smi)

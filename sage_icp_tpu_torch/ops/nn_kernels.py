@@ -36,7 +36,7 @@ _F = ctypes.c_float
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 _NN_ARGTYPES = [_V] * 8 + [_I, _I, _I, _F, _F] + [_V] * 6
-_GN_ARGTYPES = [_V] * 12 + [_I, _V, _I, _I, _I, _F, _F, _F, _F, _F, _V, _V, _V]
+_GN_ARGTYPES = [_V] * 12 + [_I, _V, _I, _I, _I, _F, _F, _F, _F, _F, _V, _V, _V, _V]
 _RC_ARGTYPES = [_V] * 5 + [_I, _I, _I, _F, _V, _V]
 
 
@@ -120,15 +120,41 @@ def default_tile_map(used: torch.Tensor) -> torch.Tensor:
     return torch.where(live, torch.arange(n_tiles, dtype=torch.int32, device=used.device), 0).to(torch.int32)
 
 
+def gn_load_bytes(M: int) -> int:
+    """Bytes the GN kernel reads per lane and plane in one load for rows
+    of M int16 lanes: 16 when the row stride 2M allows it, else 8, else 2
+    (csrc/gn_iteration.cu load_width)."""
+    return 16 if (2 * M) % 16 == 0 else 8 if (2 * M) % 8 == 0 else 2
+
+
+# csrc/gn_iteration.cu kMaxBlocks: the GN grid is min(ceil(R / 8), this)
+# blocks, fixed by R alone, each writing one partial row
+GN_MAX_BLOCKS = 528
+# per device index: the ticket counter (zero between calls) and the
+# partial rows of the GN kernel
+_gn_scratch: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _gn_scratch_on(dev):
+    if dev.index not in _gn_scratch:
+        _gn_scratch[dev.index] = (torch.zeros((1,), dtype=torch.int32, device=dev),
+                                  torch.empty((GN_MAX_BLOCKS, N_SUMS), dtype=torch.float32, device=dev))
+    return _gn_scratch[dev.index]
+
+
 def fused_gn_iteration(cx, cy, cz, cl, offx, offy, offz, q0, origin, row_abs, used, T,
                        sem_th, scale, voxel_size, max_corr, kernel_th, tile_map=None):
     """One fused Gauss-Newton iteration over the frozen rows.
 
     q0 (R, 4P) f32 setup queries [x y z label], world frame; origin (R, 3)
     f32 row voxel origins; row_abs (R, 3) int32 absolute row voxels; used
-    (R, P) int32; T (4, 4) f32 pose increment since setup (any device);
-    tile_map (ceil(R / TILE_ROWS),) int32, default_tile_map(used) when
-    None. Returns the (18,) f32 sums in N_SUMS order (deterministic)."""
+    (R, P) int32; T (4, 4) f32 pose increment since setup, read on the
+    host (a CUDA T is brought over with .cpu(); the ICP loop keeps it on
+    the host); tile_map (ceil(R / TILE_ROWS),) int32, default_tile_map(used)
+    when None. Returns the (18,) f32 sums in N_SUMS order (deterministic).
+    On the card the call is one launch; its scratch (a ticket counter and
+    the blocks' partial rows) is cached per device, so calls on one device
+    run in stream order on one stream."""
     if tile_map is None:
         tile_map = default_tile_map(used)
     if cuda_lib.on_cpu(cx):
@@ -142,18 +168,25 @@ def fused_gn_iteration(cx, cy, cz, cl, offx, offy, offz, q0, origin, row_abs, us
     cuda_lib.check_cuda("row_abs", row_abs, torch.int32, (R, 3))
     cuda_lib.check_cuda("used", used, torch.int32, (R, P))
     cuda_lib.check_cuda("tile_map", tile_map, torch.int32, (-(-R // TILE_ROWS),))
-    T = T.to(device=dev, dtype=torch.float32).contiguous()
-    rows_per_block = cuda_lib.function("gn_iteration.cu", "sage_gn_rows_per_block", [])()
-    partials = torch.empty((-(-R // rows_per_block), N_SUMS), dtype=torch.float32, device=dev)
+    width = gn_load_bytes(M)
+    for name, t in (("cx", cx), ("cy", cy), ("cz", cz), ("cl", cl)):
+        if t.data_ptr() % width:
+            raise ValueError(f"{name}: the kernel reads rows of {M} lanes {width} B at a time; "
+                             f"the base address must be {width}-byte aligned")
+    T = T.detach().to("cpu", torch.float32)
+    if tuple(T.shape) != (4, 4):
+        raise ValueError(f"T: expected (4, 4), got {tuple(T.shape)}")
+    t12 = (_F * 12)(*T[:3].reshape(-1).tolist())
+    counter, partials = _gn_scratch_on(dev)
     out = torch.empty((N_SUMS,), dtype=torch.float32, device=dev)
     fn = cuda_lib.function("gn_iteration.cu", "sage_gn_iteration", _GN_ARGTYPES)
     p = cuda_lib.ptr
     cuda_lib.call(
         "fused_gn_iteration", fn,
         p(cx), p(cy), p(cz), p(cl), p(offx), p(offy), p(offz), p(q0), p(origin),
-        p(row_abs), p(used), p(tile_map), TILE_ROWS, p(T), R, M, P,
+        p(row_abs), p(used), p(tile_map), TILE_ROWS, ctypes.cast(t12, _V), R, M, P,
         float(sem_th), float(scale), float(voxel_size), float(max_corr), float(kernel_th),
-        p(partials), p(out), cuda_lib.stream_ptr(dev),
+        p(partials), p(counter), p(out), cuda_lib.stream_ptr(dev),
     )
     return out
 

@@ -9,7 +9,9 @@ imports jax, hence --noconftest):
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 
 Without a CUDA device every test skips. Tolerances: the retention policy,
-the semantic NN, the radius count and the bitonic sort bit for bit; the
+the semantic NN, the radius count and the bitonic sort (against the
+network run stage by stage, and under its contract against the stable
+sort) bit for bit; the GN kernel in one launch and deterministic; the
 filter's keep mask and overflow bit for bit; the GN sums within 1e-5 of
 the sum of their terms' magnitudes (only the summation order differs);
 poses within 1e-4 of the CPU run; the golden trajectory within
@@ -212,20 +214,72 @@ def test_semantic_nn_kernel_matches_plain(card, P):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("P,dead_from", [(2, None), (2, 300), (8, 200)])
-def test_gn_kernel_matches_plain(card, P, dead_from):
-    d = nn_rows(5, R=384, P=P, dead_from=dead_from)
+def gn_args(card, K, P, R=389, dead_from=None, seed=5):
+    """The GN wrapper's arguments on the card for seeded rows; T on the
+    host, as the ICP loop passes it."""
+    d = nn_rows(seed, R=R, P=P, K=K, dead_from=dead_from)
     T = tgeo.se3_exp(torch.tensor([0.05, -0.02, 0.01, 0.004, -0.003, 0.006]))
     args = [t(a).to(card) for a in d["planes"] + d["offs"] + [d["q_world"], d["origin"], d["row_abs"], d["used"]]]
-    args += [T.to(card), SEM_TH, VOXEL / 32767.0, VOXEL, MAX_CORR, KTH]
+    return args + [T, SEM_TH, VOXEL / 32767.0, VOXEL, MAX_CORR, KTH]
+
+
+def device_kernels(fn):
+    """Names of the device kernels that fn() runs (torch.profiler). A fill
+    kernel opens the window: the profiler may miss a window's first
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [n for n in names if "FillFunctor" not in n]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dead_from", [None, 256])
+@pytest.mark.parametrize("P", [1, 2, 4, 8])
+@pytest.mark.parametrize("K", [40, 20, 8, 7])
+def test_gn_kernel_matches_plain(card, K, P, dead_from):
+    """Every load width (K 40 and 8: 16 B; K 20: 8 B; K 7: 2 B), every P,
+    dead tiles, and R = 389 rows (a multiple of neither the 8 rows of a
+    block's step nor the 128 of a tile)."""
+    assert nn_kernels.gn_load_bytes(27 * K) == {40: 16, 20: 8, 8: 16, 7: 2}[K]
+    args = gn_args(card, K, P, dead_from=dead_from)
     tile_map = nn_kernels.default_tile_map(args[10])
+    if dead_from is not None:
+        assert int((tile_map != torch.arange(len(tile_map), device=card)).sum()) == 2
+    cuda_lib.reset_launches()
     got = nn_kernels.fused_gn_iteration(*args, tile_map=tile_map)
+    assert cuda_lib.LAUNCHES["fused_gn_iteration"] == 1
     terms = nn_kernels.gn_terms(*args, tile_map)
-    assert torch.all((got - terms.sum(dim=1)).abs() <= 1e-5 * terms.abs().sum(dim=1) + 1e-6)
-    assert float(got[16]) > 0
-    # the reduction is deterministic
+    want = terms.sum(dim=1)
+    assert torch.all((got - want).abs() <= 1e-5 * terms.abs().sum(dim=1) + 1e-6)
+    assert float(got[16]) > 0 and float(got[17]) == float(want[17])
+    # the reduction is deterministic, and the ticket counter is reset
     assert torch.equal(got, nn_kernels.fused_gn_iteration(*args, tile_map=tile_map))
+
+
+@pytest.mark.cuda
+def test_gn_kernel_is_one_launch(card):
+    args = gn_args(card, 40, 2, R=11_264 // 8, dead_from=1_000)
+    tile_map = nn_kernels.default_tile_map(args[10])
+    nn_kernels.fused_gn_iteration(*args, tile_map=tile_map)  # the scratch is made on the first call
+    names = device_kernels(lambda: nn_kernels.fused_gn_iteration(*args, tile_map=tile_map))
+    assert len(names) == 1 and "gn_iteration_kernel" in names[0], names
+
+
+@pytest.mark.cuda
+def test_gn_kernel_refuses_misaligned_planes(card):
+    args = gn_args(card, 40, 2, R=64)
+    R, M = args[0].shape
+    shifted = torch.empty(R * M + 1, dtype=torch.int16, device=card)[1:].view(R, M)
+    shifted.copy_(args[0])
+    with pytest.raises(ValueError, match="aligned"):
+        nn_kernels.fused_gn_iteration(shifted, *args[1:])
 
 
 @pytest.mark.cuda
@@ -359,17 +413,84 @@ def test_radius_count_kernel_matches_plain(card, P):
     assert float(want.max()) > 0
 
 
+def sort_case(seed, n, n_planes, unsigned, tied):
+    """Planes (numpy), num_keys and flags for a sort of n_planes planes.
+    Untied: the composite key is distinct (an iota key, or for one plane
+    distinct values). Tied: duplicated keys and no iota key, so the
+    network's copy-over shows in the payload."""
+    k1, k2, iota, pay = sort_planes(seed, n, unsigned)
+    rng = np.random.default_rng(seed + 1)
+    if n_planes == 1:
+        distinct = (np.arange(n, dtype=np.uint64) * 2654435761 % 2**32).astype(np.uint32).view(np.int32)
+        keys = [k1 if tied else rng.permutation(distinct)]
+    elif n_planes == 2:
+        keys = [k1] if tied else [k1, iota]
+    else:
+        keys = [k1, k2] if tied else [k1, k2, iota]
+    planes = keys + ([iota] if tied and n_planes > 1 else []) + [pay]
+    while len(planes) < n_planes:
+        planes.append(rng.integers(-(2**31), 2**31, n).astype(np.int32))
+    planes = planes[:n_planes]
+    return planes, len(keys), tuple(unsigned for _ in keys)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("tied", [False, True])
 @pytest.mark.parametrize("unsigned", [False, True])
-@pytest.mark.parametrize("n", [256, 2**16, 2**18])
-def test_bitonic_kernel_matches_plain(card, n, unsigned):
-    planes = [t(a).to(card) for a in sort_planes(8, n, unsigned)]
-    flags = (unsigned, unsigned, False)
-    got = sort_kernel.bitonic_sort_planes(planes, 3, flags)
-    want = sort_kernel.bitonic_sort_planes_plain(planes, 3, flags)
+@pytest.mark.parametrize("n", [256, 512, 2**17, 2**18])
+@pytest.mark.parametrize("n_planes", [1, 2, 4, 16])
+def test_bitonic_kernel_matches_plain(card, n_planes, n, unsigned, tied):
+    """Bit for bit against the network itself (bitonic_network_plain),
+    and under the contract (untied) against the stable sort; inputs
+    untouched. The kernel's tile T is the largest up to 2^11 that leaves
+    64 tiles, at least 256: N 256 is one launch (N = T), N 512 one merge
+    past its tile (2T), N 2^17 the first with the full tile, and 2^18."""
+    planes, num_keys, flags = sort_case(8, n, n_planes, unsigned, tied)
+    planes = [t(a).to(card) for a in planes]
+    before = [p.clone() for p in planes]
+    got = sort_kernel.bitonic_sort_planes(planes, num_keys, flags)
+    want = sort_kernel.bitonic_network_plain(planes, num_keys, flags)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    # the inputs are untouched
-    assert torch.equal(planes[2], torch.arange(n, dtype=torch.int32, device=card))
+    if not tied:
+        plain = sort_kernel.bitonic_sort_planes_plain(planes, num_keys, flags)
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    assert all(torch.equal(a, b) for a, b in zip(planes, before))
+    assert not torch.equal(got[0], planes[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_keys", [4, 5, 16])
+def test_bitonic_kernel_many_keys(card, num_keys):
+    """Key counts past the three of the main path (the kernel's 4-, 8- and
+    16-key instances): low-cardinality keys, an iota last key, at N 2^14
+    (global passes included); bit for bit against both plain versions."""
+    rng = np.random.default_rng(num_keys)
+    n = 2**14
+    keys = [rng.integers(0, 3, n).astype(np.int32) for _ in range(num_keys - 1)] + [np.arange(n, dtype=np.int32)]
+    planes = [t(a).to(card) for a in keys + [rng.normal(size=n).astype(np.float32)]][:16]
+    flags = tuple(bool(i % 2) for i in range(num_keys))
+    got = sort_kernel.bitonic_sort_planes(planes, num_keys, flags)
+    for want in (sort_kernel.bitonic_network_plain(planes, num_keys, flags),
+                 sort_kernel.bitonic_sort_planes_plain(planes, num_keys, flags)):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert sort_kernel.bitonic_launches(n, num_keys) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 2**16, 2**18])
+def test_bitonic_kernel_launches(card, n):
+    """The launches a call makes are the ones bitonic_launches counts:
+    one at N 256 (one tile), 15 at 2^16 (tile 2^10) and 18 at 2^18 (tile
+    2^11), well below the 171 stages at 2^18."""
+    planes, num_keys, flags = sort_case(9, n, 4, True, False)
+    planes = [t(a).to(card) for a in planes]
+    n_launch = sort_kernel.bitonic_launches(n, num_keys)
+    assert n_launch == {256: 1, 2**16: 15, 2**18: 18}[n]
+    names = device_kernels(lambda: sort_kernel.bitonic_sort_planes(planes, num_keys, flags))
+    assert len([name for name in names if "bitonic" in name]) == n_launch
+    got = sort_kernel.bitonic_sort_planes(planes, num_keys, flags)
+    want = sort_kernel.bitonic_sort_planes_plain(planes, num_keys, flags)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda

@@ -65,6 +65,32 @@ def test_bitonic_plain_matches_pallas(n):
     assert not np.array_equal(got[2].numpy(), planes[2])
 
 
+@pytest.mark.parametrize("n", [256, 2048])
+def test_bitonic_network_plain_matches_pallas_on_ties(n):
+    """Two duplicated keys and no iota key: the network copies one element
+    over its tied partner, in the port's network as in the TPU kernel."""
+    planes = sort_planes(3, n, unsigned=True)
+    jplanes = [jnp.asarray(p.view(np.uint32)) for p in planes[:2]] + [jnp.asarray(p) for p in planes[2:]]
+    want = jps.bitonic_sort_planes(tuple(jplanes), num_keys=2, interpret=True)
+    got = sort_kernel.bitonic_network_plain([t(p) for p in planes], 2, unsigned=(True, True))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy().view(np.asarray(w).dtype), np.asarray(w))
+    assert len(np.unique(got[2].numpy())) < n  # payloads were copied over
+
+
+@pytest.mark.parametrize("unsigned", [False, True])
+@pytest.mark.parametrize("n", [256, 2048])
+def test_bitonic_network_plain_matches_stable_sort(n, unsigned):
+    """Under the contract (an iota last key) the network is the stable
+    sort."""
+    planes = [t(p) for p in sort_planes(4, n, unsigned)]
+    flags = (unsigned, unsigned, False)
+    got = sort_kernel.bitonic_network_plain(planes, 3, flags)
+    want = sort_kernel.bitonic_sort_planes_plain(planes, 3, flags)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not torch.equal(got[2], planes[2])
+
+
 def test_filter_refuses_grid_beyond_float32_ids():
     """Cell ids pool in float32, exact below 2^24 cells: 179 m fits, 180 m
     is refused rather than clustered differently from JAX."""

@@ -56,6 +56,16 @@ def test_gn_iteration_plain_matches_pallas(dead_from):
     assert got[16] > 0 and got[16] == want[16] and got[17] == want[17]
 
 
+@pytest.mark.parametrize("K,width", [(40, 16), (20, 8), (8, 16), (4, 8), (7, 2)])
+def test_gn_load_width(K, width):
+    """The GN kernel's load width per lane and plane follows the row's byte
+    stride 2M (M = 27K): 16 B on the main path (K = 40), else 8 B, else
+    2 B; every row start of a 16-byte-aligned plane is then aligned too."""
+    M = 27 * K
+    assert nn_kernels.gn_load_bytes(M) == width
+    assert (2 * M) % width == 0
+
+
 def test_policy_plain_matches_pallas():
     args = policy_rows(2)
     basic = 4
