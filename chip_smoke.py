@@ -5,8 +5,10 @@
 
 With --root, only the kernel times of the port checked out at DIR (the
 parent commit unpacked with `git archive`, say) are taken, at phase 3's
-shapes on phase 3's inputs, and printed as one JSON line; nothing is
-checked. Run it on both trees in one call to compare them.
+shapes on phase 3's inputs and, when build/drive_rows.pt exists (phase 7
+writes it), on the kitti drive's own policy and radius-count rows, and
+printed as one JSON line; nothing is checked. Run it on both trees in one
+call to compare them.
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -37,9 +39,14 @@ Phases, each fatal on failure:
      count launched once per frame;
   7. on the kitti drive's last frame: vehicle points in, kept and
      removed; the filter on the card against the filter on the CPU; the
-     bitonic sort of the filter's sort keys against torch.sort;
+     bitonic sort of the filter's sort keys against torch.sort; the
+     drive's own rows of the policy kernel (one map insert of the frame)
+     and of the radius count (the filter of the frame), captured from
+     their wrappers, each kernel against its plain version bit for bit,
+     the rows' shape and the kernel's time, saved to build/drive_rows.pt;
   8. with --profile only: each path's host phases, device busy share and
-     kernels (torch.profiler) on five further frames.
+     kernels (torch.profiler) on five further frames, the port's own
+     kernels listed apart.
 The line before the device line is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits non-zero and prints no result.
@@ -68,6 +75,10 @@ KITTI = dict(name="kitti", R=16_384 + 2_048, P=2, K=40, U=33_024, R_max=48, voxe
 KITTI_FILTER = dict(VR=4_096, P=48, M=27 * 32, r2=0.25)
 SORT_NS = (2**16, 2**18)  # bitonic checks; the kitti scan's keys pad to 2^18
 GN_SUM_RTOL = 1e-4
+# the __global__ functions of sage_icp_tpu_torch/csrc, as the profiler names them
+PORT_KERNELS = ("semantic_nn_kernel", "gn_iteration_kernel", "retention_policy_kernel", "radius_count_kernel",
+                "bitonic_tile_kernel", "bitonic_global_kernel")
+DRIVE_ROWS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "drive_rows.pt")
 WARMUP, FRAMES = 10, 30  # each path: warm-up and timed frames
 
 
@@ -420,6 +431,13 @@ def time_tree(dev) -> dict:
         record(f"bitonic_sort_planes 2^{n.bit_length() - 1} x 4",
                lambda: sort_kernel.bitonic_sort_planes(planes, 3, flags))
     record("library 2^18 x 4 (packed torch.sort + gathers)", lambda: sort_library(planes))
+    if os.path.exists(DRIVE_ROWS):
+        rows = torch.load(DRIVE_ROWS)
+        to = lambda args: [a.to(dev) if torch.is_tensor(a) else a for a in args]
+        pargs, rargs = to(rows["apply_policy"]), to(rows["radius_count"])
+        basic = rows["basic"]
+        record("apply_policy kitti drive rows", lambda: policy_kernel.apply_policy(*pargs, basic=basic))
+        record("radius_count kitti drive rows", lambda: nn_kernels.radius_count(*rargs))
     return times
 
 
@@ -515,6 +533,84 @@ def single_pass(odom, scan):
     return launches
 
 
+def capture(module, name: str, fn):
+    """Run fn() with module.<name> wrapped to keep the arguments of its
+    first call; the wrapper is restored afterwards. Returns (fn's result,
+    (args, kwargs))."""
+    orig = getattr(module, name)
+    seen = []
+
+    def spy(*args, **kwargs):
+        if not seen:
+            seen.append((args, kwargs))
+        return orig(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        result = fn()
+    finally:
+        setattr(module, name, orig)
+    if not seen:
+        fail(f"{module.__name__}.{name} was not called")
+    return result, seen[0]
+
+
+def drive_rows(odom, buf, rargs) -> None:
+    """Phase 7's drive rows: the policy kernel's arguments from one map
+    insert of the scan in `buf` (as profile runs it, the state held
+    fixed) and the radius count's `rargs` from the frame's filter. Each
+    kernel against its plain version bit for bit, the rows' shape, the
+    kernel's time; the arguments go to DRIVE_ROWS for --root."""
+    from sage_icp_tpu_torch.models import pipeline as pl
+    from sage_icp_tpu_torch.ops import geometry as geo
+    from sage_icp_tpu_torch.ops import hashmap as hm
+    from sage_icp_tpu_torch.ops import nn_kernels, policy_kernel
+
+    cfg, dev, state = odom.config, odom.device, odom.state
+    prep = pl.prepare_icp_inputs(state, buf, buf[:, 0] < 1.0e6, cfg)
+    icp = pl.run_icp(state.map, prep, cfg)
+    world = geo.transform_points(icp.pose, prep["frame_ds"])
+    _, (pargs, pkw) = capture(policy_kernel, "apply_policy", lambda: hm.insert(
+        state.map, world, prep["frame_valid"], cfg.voxel_size_map, cfg.basic_points_per_voxel,
+        pl.basic_label_mask(cfg, dev), cfg.max_incoming_per_voxel, cfg.probe_depth,
+        min(cfg.insert_unique_capacity, cfg.frame_capacity), prep["tables"]))
+    basic = pkw["basic"]
+    got = policy_kernel.apply_policy(*pargs, basic=basic)
+    want = policy_kernel.apply_policy_plain(*pargs, basic=basic)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail("apply_policy on the kitti drive's rows is not bit-exact against its plain version")
+    seg = pargs[5][:, 0]
+    U, K = pargs[0].shape
+    total_seg = int(seg.sum())
+    b_ms, b_by = bound(2 * (4 * U * K * 2) + 2 * U * 4 + 4 * total_seg * 2 + U * 4, total_seg * 10)
+    ms = time_ms(lambda: policy_kernel.apply_policy(*pargs, basic=basic))
+    print(f"apply_policy on the kitti drive's rows: bit-exact; U {U}, K {K}, R_max {pargs[6].shape[1]}, "
+          f"live rows {int((seg > 0).sum())}, sum of seglen {total_seg}, rows with seglen > 24 "
+          f"{int((seg > 24).sum())}; kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+
+    got = nn_kernels.radius_count(*rargs)
+    want = nn_kernels.radius_count_plain(*rargs)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail("radius_count on the kitti drive's rows is not bit-exact against its plain version")
+    cx, used = rargs[0], rargs[4]
+    VR, M = cx.shape
+    live = (used != 0).any(dim=1)
+    n_live, n_used = int(live.sum()), int((used != 0).sum())
+    lanes = int(((cx < 1.0e9) & live[:, None]).sum())
+    # as phase 3 counts it: candidates of the live rows, all queries, flags
+    # and counts; 9 operations per lane of a used slot
+    b_ms, b_by = bound(n_live * 3 * M * 4 + VR * 3 * used.shape[1] * 4 + 2 * used.numel() * 4, n_used * M * 9)
+    ms = time_ms(lambda: nn_kernels.radius_count(*rargs))
+    print(f"radius_count on the kitti drive's rows: bit-exact; VR {VR}, M {M}, P {used.shape[1]}, live rows "
+          f"{n_live}, used slots {n_used}, lanes under 1e9 in live rows {lanes} of {n_live * M}; kernel "
+          f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    os.makedirs(os.path.dirname(DRIVE_ROWS), exist_ok=True)
+    cpu = lambda args: [a.cpu() if torch.is_tensor(a) else a for a in args]
+    torch.save({"apply_policy": cpu(pargs), "basic": basic, "radius_count": cpu(rargs)}, DRIVE_ROWS)
+
+
 def kitti_checks(odom, scan):
     """Phase 7, after the kitti path, on its last frame preprocessed as the
     step does: the filter's vehicle points in, kept and removed, and its
@@ -522,8 +618,9 @@ def kitti_checks(odom, scan):
     points and overflow bit for bit); the sort kernel on the filter's
     vehicle sort keys (cell id, or 2^30 for other points, then the
     position as an iota key, padded to 2^18 with sentinel keys) against
-    torch.sort(stable=True). Returns the sort kernel's launches there."""
-    from sage_icp_tpu_torch.ops import cuda_lib
+    torch.sort(stable=True); the drive's own kernel rows (drive_rows).
+    Returns the sort kernel's launches there."""
+    from sage_icp_tpu_torch.ops import cuda_lib, nn_kernels
     from sage_icp_tpu_torch.ops import dynamic_filter as dyn
     from sage_icp_tpu_torch.ops import scan as scan_ops
     from sage_icp_tpu_torch.ops import sort_kernel
@@ -534,7 +631,7 @@ def kitti_checks(odom, scan):
     buf = buf.to(dev)
     pts, ok = scan_ops.preprocess(buf, buf[:, 0] < 1.0e6, cfg.max_range, cfg.min_range, cfg.label_max_range)
 
-    card = dyn.filter_dynamic_vehicles(pts, ok, cfg)
+    card, (rargs, _) = capture(nn_kernels, "radius_count", lambda: dyn.filter_dynamic_vehicles(pts, ok, cfg))
     cpu = dyn.filter_dynamic_vehicles(pts.cpu(), ok.cpu(), cfg)
     same = all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
     veh_key, _, vehicle = dyn.class_sort_keys(pts, ok, cfg)
@@ -564,6 +661,7 @@ def kitti_checks(odom, scan):
           f"{time_ms(lambda: sort_kernel.bitonic_sort_planes((key, pos), 2)):.4f} ms in "
           f"{sort_kernel.bitonic_launches(n, 2)} launches, torch.sort "
           f"{time_ms(lambda: torch.sort(key, stable=True)):.4f} ms", flush=True)
+    drive_rows(odom, buf, rargs)
     return launches
 
 
@@ -624,9 +722,13 @@ def profile(name, odom, scans) -> None:
     print(f"{name} profile: {n} frames, wall {1e3 * wall / n:.3f} ms/frame, device busy "
           f"{busy_us / 1e3 / n:.3f} ms/frame, idle share {1 - busy_us / 1e6 / wall:.4f}, "
           f"{launches / n:.1f} device ops/frame", flush=True)
+    line = lambda e: f"  {e.self_device_time_total / 1e3 / n:9.4f} ms/frame {e.count / n:7.1f}x  {e.key[:90]}"
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"  {e.self_device_time_total / 1e3 / n:9.4f} ms/frame {e.count / n:7.1f}x  {e.key[:90]}",
-              flush=True)
+        print(line(e), flush=True)
+    print(f"{name} profile, the port's kernels:", flush=True)
+    for e in events:
+        if any(k in e.key for k in PORT_KERNELS):
+            print(line(e), flush=True)
 
 
 def main() -> int:

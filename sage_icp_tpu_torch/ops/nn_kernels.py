@@ -21,7 +21,9 @@ kernel for CUDA tensors (or raises); there is no other switch.
 from __future__ import annotations
 
 import ctypes
+import math
 
+import numpy as np
 import torch
 
 from sage_icp_tpu_torch.ops import cuda_lib
@@ -37,7 +39,8 @@ _V = ctypes.c_void_p
 _I = ctypes.c_int
 _NN_ARGTYPES = [_V] * 8 + [_I, _I, _I, _F, _F] + [_V] * 6
 _GN_ARGTYPES = [_V] * 12 + [_I, _V, _I, _I, _I, _F, _F, _F, _F, _F, _V, _V, _V, _V]
-_RC_ARGTYPES = [_V] * 5 + [_I, _I, _I, _F, _V, _V]
+_RC_ARGTYPES = [_V] * 5 + [_I, _I, _I, _F, _F, _V, _V]
+RC_MAX_SMEM = 232_448  # shared memory one block may take on an H100
 
 
 def _check_rows(cx, cy, cz, cl, offx, offy, offz, P):
@@ -273,15 +276,39 @@ def radius_count(cx, cy, cz, queries, used, r2):
         cuda_lib.check_cuda(name, t, torch.float32, (R, M))
     cuda_lib.check_cuda("queries", queries, torch.float32, (R, 3 * P))
     cuda_lib.check_cuda("used", used, torch.int32, (R, P))
+    if radius_count_smem(M, P) > RC_MAX_SMEM:
+        raise ValueError(f"radius_count: rows of {M} lanes and {P} slots need "
+                         f"{radius_count_smem(M, P)} B of shared memory; a block has {RC_MAX_SMEM}")
     out = torch.empty((R, P), dtype=torch.float32, device=cx.device)
     fn = cuda_lib.function("radius_count.cu", "sage_radius_count", _RC_ARGTYPES)
     p = cuda_lib.ptr
     cuda_lib.call(
         "radius_count", fn,
-        p(cx), p(cy), p(cz), p(queries), p(used), R, M, P, float(r2), p(out),
-        cuda_lib.stream_ptr(cx.device),
+        p(cx), p(cy), p(cz), p(queries), p(used), R, M, P, float(r2),
+        float(skip_margin(r2)), p(out), cuda_lib.stream_ptr(cx.device),
     )
     return out
+
+
+def radius_count_smem(M: int, P: int) -> int:
+    """Bytes of shared memory the radius-count kernel takes for a row of M
+    lanes and P slots: a float4 per lane and per query, three ints per
+    slot (csrc/radius_count.cu)."""
+    return (M + P) * 16 + 3 * P * 4
+
+
+def skip_margin(r2) -> np.float32:
+    """The radius-count kernel's lane-skip margin m for float32 r2: a lane
+    farther than m from every used query on one axis is skipped, which is
+    exact when fl(m * m) > r2 in float32 (csrc/radius_count.cu proves it).
+    The smallest such m up to a 2^-10 slack; +inf (skip nothing) for an
+    infinite or NaN r2."""
+    r2 = np.float32(r2)
+    if not np.isfinite(r2):
+        return np.float32(np.inf)
+    m = np.float32(math.sqrt(max(float(r2), 0.0)) * (1.0 + 2.0**-10) + 2.0**-60)
+    with np.errstate(over="ignore"):
+        return m if np.float32(m * m) > r2 else np.float32(np.inf)
 
 
 def radius_count_plain(cx, cy, cz, queries, used, r2):

@@ -31,6 +31,7 @@ from sage_icp_tpu_torch.ops import cuda_lib
 CLS_SHIFT = 12
 LABEL_MASK = (1 << CLS_SHIFT) - 1
 MAX_K = 64  # the kernel keeps each row's zero-live slots in a 64-bit mask
+MAX_R = 64  # and stages a tile's incoming classes in shared memory
 
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
 
@@ -40,8 +41,8 @@ def apply_policy(bx, by, bz, bl, counts, seglen, ix, iy, iz, ie, basic: int):
         return apply_policy_plain(bx, by, bz, bl, counts, seglen, ix, iy, iz, ie, basic)
     U, K = bx.shape
     Rmax = ix.shape[1]
-    if K > MAX_K:
-        raise ValueError(f"apply_policy: K = {K} exceeds the kernel's {MAX_K}")
+    if not (1 <= K <= MAX_K and 1 <= Rmax <= MAX_R):
+        raise ValueError(f"apply_policy: K = {K}, R_max = {Rmax}; the kernel takes 1..{MAX_K} and 1..{MAX_R}")
     for name, t in (("bx", bx), ("by", by), ("bz", bz), ("bl", bl)):
         cuda_lib.check_cuda(name, t, torch.int16, (U, K))
     for name, t in (("counts", counts), ("seglen", seglen)):

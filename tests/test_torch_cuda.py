@@ -92,6 +92,23 @@ def policy_rows(seed, U=256, K=8, Rm=8):
     return blocks + [counts, seglen] + inc + [enc]
 
 
+def policy_edge_rows(seed, U=209, K=40, Rm=48):
+    """policy_rows with rows at every branch's edge, in turn: count K and
+    no label-0 slot; every slot label 0; seglen R_max; count K, every slot
+    label 0 and seglen R_max; count 0 and seglen R_max; only critical
+    points, seglen R_max (appends up to K, then overwrites)."""
+    rows = policy_rows(seed, U=U, K=K, Rm=Rm)
+    bl, counts, seglen, ie = rows[3], rows[4], rows[5], rows[9]
+    kind = np.arange(U) % 7
+    bl[kind == 0] = np.where(bl[kind == 0] == 0, 40, bl[kind == 0])
+    counts[(kind == 0) | (kind == 3)] = K
+    bl[(kind == 1) | (kind == 3)] = 0
+    counts[kind == 4] = 0
+    seglen[(kind >= 2) & (kind <= 5)] = Rm
+    ie[kind == 5] = np.int16(81 | (2 << policy_kernel.CLS_SHIFT))
+    return rows
+
+
 def gn_fixture(n=2000, seed=0):
     """Two walls and a floor (a well-conditioned 6-DoF problem) as the
     world, and the frame seen from a known offset."""
@@ -128,6 +145,42 @@ def radius_rows(seed, R=512, P=48, M=27 * 32):
     used[1::2] = 0  # dead rows
     c = np.ascontiguousarray
     return [c(cand[..., 0]), c(cand[..., 1]), c(cand[..., 2]), q.reshape(R, 3 * P), used]
+
+
+def radius_edge_rows(seed, R=256, P=48, M=27 * 32, r2=0.25):
+    """radius_rows at the edges of the kernel's lane skip: row 0 has every
+    slot used, rows 2 mod 4 one used slot, odd rows none; in each live row
+    lanes 12-29 lie one ulp inside, on and one ulp outside the skip margin
+    beyond the used queries' bounds on each axis and side, lanes 30-34
+    are NaN or infinite on one axis (as many as M holds), and in rows 0
+    and 4 a used query has a NaN or an infinite coordinate. M need not be
+    a multiple of 4 or 32 (at least 30)."""
+    cx, cy, cz, q, used = radius_rows(seed, R=R, P=P, M=M)
+    c = [cx, cy, cz]
+    q = q.reshape(R, P, 3).copy()
+    used[0] = 1
+    used[2::4] = 0
+    used[2::4, seed % P] = 1
+    q[0, P - 1, 0] = np.nan
+    q[4, 0, 2] = -np.inf
+    m = nn_kernels.skip_margin(r2)
+    up, down = np.float32(np.inf), np.float32(-np.inf)
+    for r in np.nonzero(used.any(axis=1))[0]:
+        fin = q[r][(used[r] != 0) & np.isfinite(q[r]).all(axis=1)]
+        if len(fin) == 0:
+            continue
+        lo, hi, near = fin.min(axis=0), fin.max(axis=0), fin[0]
+        lane = 12
+        for a in range(3):
+            for edge in (hi[a] + m, lo[a] - m):
+                e = np.float32(edge)
+                for v in (np.nextafter(e, down), e, np.nextafter(e, up)):
+                    for b in range(3):
+                        c[b][r, lane] = v if b == a else near[b]
+                    lane += 1
+        for lane, (a, v) in zip(range(30, M), ((0, np.nan), (0, np.inf), (1, -np.inf), (2, np.inf), (2, np.nan))):
+            c[a][r, lane] = v
+    return [cx, cy, cz, q.reshape(R, 3 * P), used]
 
 
 def sort_planes(seed, n, unsigned):
@@ -282,13 +335,72 @@ def test_gn_kernel_refuses_misaligned_planes(card):
         nn_kernels.fused_gn_iteration(shifted, *args[1:])
 
 
+def one_launch(wrapper: str, kernel: str, fn):
+    """fn() through `wrapper`: one counted launch, and one device kernel,
+    `kernel`, when it runs again. Returns the first call's result."""
+    cuda_lib.reset_launches()
+    out = fn()
+    assert cuda_lib.LAUNCHES[wrapper] == 1
+    names = device_kernels(fn)
+    assert len(names) == 1 and kernel in names[0], names
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("K,Rm", [(8, 8), (40, 48)])
+@pytest.mark.parametrize("Rm", [8, 48])
+@pytest.mark.parametrize("K", [8, 20, 40, 64])
 def test_policy_kernel_matches_plain(card, K, Rm):
+    """U = 1000 rows: not a multiple of the kernel's tile."""
     args = [t(a).to(card) for a in policy_rows(3, U=1000, K=K, Rm=Rm)]
-    got = policy_kernel.apply_policy(*args, basic=K // 2)
+    got = one_launch("apply_policy", "retention_policy_kernel",
+                     lambda: policy_kernel.apply_policy(*args, basic=K // 2))
     want = policy_kernel.apply_policy_plain(*args, basic=K // 2)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("basic", ["zero", "half", "K"])
+@pytest.mark.parametrize("K,Rm", [(20, 64), (40, 48), (64, 64), (64, 8)])
+def test_policy_kernel_edge_rows(card, K, Rm, basic):
+    """Every branch at its edge (policy_edge_rows), basic 0, K / 2 and K,
+    U = 209 rows."""
+    n_basic = {"zero": 0, "half": K // 2, "K": K}[basic]
+    args = [t(a).to(card) for a in policy_edge_rows(4, U=209, K=K, Rm=Rm)]
+    got = one_launch("apply_policy", "retention_policy_kernel",
+                     lambda: policy_kernel.apply_policy(*args, basic=n_basic))
+    want = policy_kernel.apply_policy_plain(*args, basic=n_basic)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not torch.equal(got[0], args[0])  # some slot was written
+
+
+@pytest.mark.cuda
+def test_policy_kernel_takes_misaligned_planes(card):
+    """Planes that are views one element past a 16-byte boundary take the
+    kernel's 2-byte copies; the result is the same."""
+    args = [t(a).to(card) for a in policy_edge_rows(5, U=209, K=40, Rm=48)]
+
+    def shifted(a):
+        if a.dtype != torch.int16:
+            return a
+        out = torch.empty(a.numel() + 1, dtype=a.dtype, device=card)[1:].view(a.shape)
+        return out.copy_(a)
+
+    moved = [shifted(a) for a in args]
+    assert all(a.data_ptr() % 16 for a in moved if a.dtype == torch.int16)
+    got = one_launch("apply_policy", "retention_policy_kernel",
+                     lambda: policy_kernel.apply_policy(*moved, basic=20))
+    want = policy_kernel.apply_policy_plain(*args, basic=20)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Rm", [(65, 8), (8, 65)])
+def test_policy_kernel_refuses_beyond_its_limits(card, K, Rm):
+    args = [t(a).to(card) for a in policy_rows(3, U=64, K=K, Rm=Rm)]
+    cuda_lib.reset_launches()
+    with pytest.raises(ValueError, match="the kernel takes"):
+        policy_kernel.apply_policy(*args, basic=4)
+    assert cuda_lib.LAUNCHES["apply_policy"] == 0
 
 
 @pytest.mark.cuda
@@ -408,6 +520,20 @@ def test_radius_count_kernel_matches_plain(card, P):
     cuda_lib.reset_launches()
     got = nn_kernels.radius_count(*args)
     assert cuda_lib.LAUNCHES["radius_count"] == 1
+    want = nn_kernels.radius_count_plain(*args)
+    assert torch.equal(got, want)
+    assert float(want.max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 48])
+@pytest.mark.parametrize("M", [27 * 32, 27 * 32 - 3, 37])
+def test_radius_count_kernel_edge_lanes(card, M, P):
+    """radius_edge_rows: every slot used, one used slot, lanes at the skip
+    margin and at d2 == r2, NaN and infinite lanes and queries, M a
+    multiple of 4 and 32, or of neither."""
+    args = [t(a).to(card) for a in radius_edge_rows(9, R=512, P=P, M=M)] + [0.25]
+    got = one_launch("radius_count", "radius_count_kernel", lambda: nn_kernels.radius_count(*args))
     want = nn_kernels.radius_count_plain(*args)
     assert torch.equal(got, want)
     assert float(want.max()) > 0

@@ -28,7 +28,7 @@ from sage_icp_tpu_torch.ops import nn_kernels, sort_kernel
 from sage_icp_tpu_torch.ops import scan as tscan
 from tests.test_robustness import small_config
 from tests.test_torch_cuda import (city_frame, crowded_cell_scan, kitti_world, pad_scan, parked_moving_scan,
-                                   radius_rows, sort_planes, t)
+                                   radius_edge_rows, radius_rows, sort_planes, t)
 
 CAP = 16384
 VEHICLE = (10, 11, 13, 15, 16, 18, 20)
@@ -50,6 +50,61 @@ def test_radius_count_plain_matches_pallas(P):
     got = nn_kernels.radius_count(*[t(a) for a in args], 0.25).numpy()
     np.testing.assert_array_equal(got, want)
     assert want.max() > 0 and (want == 0).any()
+
+
+@pytest.mark.parametrize("M,P", [(27 * 32, 48), (27 * 32 - 3, 1), (37, 48)])
+def test_radius_count_plain_matches_pallas_on_edge_lanes(M, P):
+    """NaN and infinite lanes and queries, lanes at the kernel's skip
+    margin (radius_edge_rows)."""
+    args = radius_edge_rows(9, R=128, P=P, M=M)
+    want = np.asarray(jpn.radius_count(*[jnp.asarray(a) for a in args], 0.25, interpret=True))
+    got = nn_kernels.radius_count(*[t(a) for a in args], 0.25).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert want.max() > 0
+
+
+@pytest.mark.parametrize("r2", [0.25, 1.0, 2.0, 0.0, -1.0, 1e-30, 1e-45, 3e38, 3.4e38, np.inf, np.nan])
+def test_skip_margin_squares_past_r2(r2):
+    """The radius-count kernel's lane skip is exact when fl(m * m) > r2;
+    m stays within 2^-9 of sqrt(r2) where r2 is not tiny, and is +inf
+    (no skip) only where no float32 margin works."""
+    m = nn_kernels.skip_margin(r2)
+    r2 = np.float32(r2)
+    assert m.dtype == np.float32
+    if not np.isfinite(r2):
+        assert m == np.inf
+        return
+    with np.errstate(over="ignore"):
+        assert np.float32(m * m) > r2
+    if 1e-30 <= r2 <= 3e38:
+        assert m <= np.sqrt(np.float64(r2)) * (1 + 2.0**-9)
+
+
+@pytest.mark.parametrize("M,P", [(27 * 32, 48), (27 * 32 - 3, 1), (37, 48)])
+def test_radius_skip_rule_keeps_every_count(M, P):
+    """The kernel's lane skip (csrc/radius_count.cu) in numpy: a lane with
+    fl(c - hi) > m or fl(lo - c) > m on an axis, for the bounds lo/hi of
+    the row's finite used queries, is made NaN (it never counts); the
+    plain counts do not change. The margin lanes of radius_edge_rows fall
+    on both sides of the rule."""
+    cx, cy, cz, q, used = radius_edge_rows(9, R=128, P=P, M=M)
+    m = nn_kernels.skip_margin(0.25)
+    planes = np.stack([cx, cy, cz])  # (3, R, M)
+    qq = q.reshape(len(used), P, 3)
+    drop = np.zeros(cx.shape, dtype=bool)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for r in np.nonzero(used.any(axis=1))[0]:
+            fin = qq[r][(used[r] != 0) & np.isfinite(qq[r]).all(axis=1)]
+            lo = fin.min(axis=0) if len(fin) else np.full(3, np.inf, np.float32)
+            hi = fin.max(axis=0) if len(fin) else np.full(3, -np.inf, np.float32)
+            c = planes[:, r, :]
+            drop[r] = ((c - hi[:, None] > m) | (lo[:, None] - c > m)).any(axis=0)
+    skipped = np.where(drop, np.float32(np.nan), planes)
+    want = nn_kernels.radius_count(*[t(a) for a in (cx, cy, cz, q, used)], 0.25)
+    got = nn_kernels.radius_count(*[t(a) for a in (*skipped, q, used)], 0.25)
+    assert torch.equal(got, want) and float(want.max()) > 0
+    edge = drop[used.any(axis=1)][:, 12:30]
+    assert edge.any() and not edge.all()
 
 
 @pytest.mark.parametrize("n", [256, 2048])
