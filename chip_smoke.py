@@ -46,7 +46,23 @@ Phases, each fatal on failure:
      the rows' shape and the kernel's time, saved to build/drive_rows.pt;
   8. with --profile only: each path's host phases, device busy share and
      kernels (torch.profiler) on five further frames, the port's own
-     kernels listed apart.
+     kernels listed apart; the deskew path's too (after phase 9), and
+     the deskew's share of its device busy time;
+  9. the runtime (run after phase 7): the CLI in process, `--synthetic
+     --preset kitti --deskew --frames 40 --chunk 8`, chunked and with
+     --timed-icp (per-frame), each with ATE < 0.05 m, 40 lines in
+     path.txt, gt_path.txt and time.txt, no drop, GN launched once per
+     ICP iteration of the step and of the timer's replays, the policy
+     once a frame, the radius count once per prepare (a frame's step,
+     and each timer replay), and a finite positive t_icp on every timed
+     line; the two trajectories within 1e-5 m. Then the kitti
+     drive's 40 scans skewed by their frames' motion (skew_scan over the
+     azimuth phase), driven with deskew off and on: no drop, ATE on
+     < 0.05 m and no larger than off; the deskewed drive chunked (W = 8)
+     within 1e-5 of per-frame, both timed; one frame's deskew on the card
+     against the CPU within 1e-5 m, and its time at 135,168 points; a
+     checkpoint resume after 20 frames equal to the uninterrupted run
+     (trajectory within 1e-5 m, the map slot for slot).
 The line before the device line is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits non-zero and prints no result.
@@ -78,7 +94,10 @@ GN_SUM_RTOL = 1e-4
 # the __global__ functions of sage_icp_tpu_torch/csrc, as the profiler names them
 PORT_KERNELS = ("semantic_nn_kernel", "gn_iteration_kernel", "retention_policy_kernel", "radius_count_kernel",
                 "bitonic_tile_kernel", "bitonic_global_kernel")
-DRIVE_ROWS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "drive_rows.pt")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DRIVE_ROWS = os.path.join(ROOT, "build", "drive_rows.pt")
+CLI_OUT = os.path.join(ROOT, "build", "cli_smoke")
+CLI_FRAMES = 40
 WARMUP, FRAMES = 10, 30  # each path: warm-up and timed frames
 
 
@@ -441,6 +460,25 @@ def time_tree(dev) -> dict:
     return times
 
 
+def ate_of(est, gt) -> float:
+    """Translation RMSE of est against gt, both rebased to their first pose."""
+    g0 = np.linalg.inv(gt[0])
+    errs = [np.linalg.norm(e[:3, 3] - (g0 @ g)[:3, 3]) for e, g in zip(est, gt)]
+    return float(np.sqrt(np.mean(np.square(errs))))
+
+
+def expect_launches(name, launches, gn, frames, prepares) -> None:
+    """GN once per ICP iteration (`gn`), the policy once a frame (the
+    insert), the radius count once per prepare (the filter: once a frame,
+    and once more in each of IcpTimer's replays), the NN and sort kernels
+    not at all."""
+    expect = dict(fused_gn_iteration=gn, apply_policy=frames, radius_count=prepares, fused_semantic_nn=0,
+                  bitonic_sort_planes=0)
+    for kernel, count in expect.items():
+        if launches[kernel] != count:
+            fail(f"{name}: {kernel} launched {launches[kernel]} times, expected {count}")
+
+
 def drive(name: str, odom, density: float, warmup: int, frames: int, extra: int):
     """Phases 4 and 6: `odom` over the city world at `density` along
     make_trajectory, scans from render_scan at n_target 120000. Returns
@@ -473,21 +511,13 @@ def drive(name: str, odom, density: float, warmup: int, frames: int, extra: int)
     totals = odom.aux_totals()
     if int(totals.overflow_total()) != 0:
         fail(f"silent-drop counters over all frames: {totals}")
-    est = odom.trajectory()
-    g0 = np.linalg.inv(gt[0])
-    errs = [np.linalg.norm(e[:3, 3] - (g0 @ g)[:3, 3]) for e, g in zip(est, gt[:n])]
-    ate = float(np.sqrt(np.mean(np.square(errs))))
+    ate = ate_of(odom.trajectory(), gt[:n])
     if not np.isfinite(ate) or ate >= 0.05:
         fail(f"ATE {ate} m over {n} frames")
-    iters = sum(odom.icp_iters)
-    # every ICP iteration runs the GN kernel, every insert the policy
-    # kernel, every filtered frame the radius count; the NN kernel has its
-    # own path (phase 5) and the sort kernel its own check (phase 7)
-    expect = dict(fused_gn_iteration=iters, apply_policy=n, fused_semantic_nn=0, bitonic_sort_planes=0,
-                  radius_count=n if odom.config.dynamic_vehicle_filter else 0)
-    for kernel, count in expect.items():
-        if launches[kernel] != count:
-            fail(f"{name} path: {kernel} launched {launches[kernel]} times, expected {count}")
+    # the NN kernel has its own path (phase 5), the sort kernel its own
+    # check (phase 7)
+    expect_launches(f"{name} path", launches, sum(odom.icp_iters), n,
+                    n if odom.config.dynamic_vehicle_filter else 0)
     print(f"{name} path: {frames} timed frames in {elapsed:.4f} s = {frames / elapsed:.3f} scans/s, "
           f"{1e3 * elapsed / frames:.3f} ms/frame; ICP iterations {odom.icp_iters}; "
           f"ATE {ate:.5f} m; live voxels {int((odom.state.map.counts > 0).sum())}; "
@@ -509,7 +539,7 @@ def single_pass(odom, scan):
     dev = odom.device
     buf = torch.full((cfg.scan_capacity, 4), 1.0e7, device=dev)
     buf[: len(scan)] = torch.from_numpy(scan).to(dev)
-    prep = pl.prepare_icp_inputs(odom.state, buf, buf[:, 0] < 1.0e6, cfg)
+    prep = pl.prepare_icp_inputs(odom.state, buf, buf[:, 0] < 1.0e6, torch.zeros(len(buf), device=dev), cfg)
     query = geo.transform_points(odom.state.last_pose, prep["source"])
     valid = prep["source_valid"]
     tables = cf.build_probe_tables(odom.state.map, trunc_div(odom.state.last_pose[:3, 3], cfg.voxel_size_map),
@@ -567,7 +597,7 @@ def drive_rows(odom, buf, rargs) -> None:
     from sage_icp_tpu_torch.ops import nn_kernels, policy_kernel
 
     cfg, dev, state = odom.config, odom.device, odom.state
-    prep = pl.prepare_icp_inputs(state, buf, buf[:, 0] < 1.0e6, cfg)
+    prep = pl.prepare_icp_inputs(state, buf, buf[:, 0] < 1.0e6, torch.zeros(len(buf), device=dev), cfg)
     icp = pl.run_icp(state.map, prep, cfg)
     world = geo.transform_points(icp.pose, prep["frame_ds"])
     _, (pargs, pkw) = capture(policy_kernel, "apply_policy", lambda: hm.insert(
@@ -665,12 +695,14 @@ def kitti_checks(odom, scan):
     return launches
 
 
-def profile(name, odom, scans) -> None:
+def profile(name, odom, scans, tss=None) -> float:
     """Optional phase 8 (--profile): where the time of a frame goes, on
-    the frames that follow the path's. First the host phases of the next
-    frame, timed with a synchronise after each (the state held fixed,
-    repeated); then the device's busy share and its kernels by total time
-    from torch.profiler while the frames are registered."""
+    the frames that follow the path's (with their per-point timestamps
+    `tss` on the deskew path). First the host phases of the next frame,
+    timed with a synchronise after each (the state held fixed, repeated);
+    then the device's busy share and its kernels by total time from
+    torch.profiler while the frames are registered. Returns the device
+    busy ms a frame."""
     from sage_icp_tpu_torch.models import pipeline as pl
     from sage_icp_tpu_torch.ops import geometry as geo
     from sage_icp_tpu_torch.ops import hashmap as hm
@@ -680,13 +712,13 @@ def profile(name, odom, scans) -> None:
     iters = 0
     state = odom.state
     n = len(scans)
-    buf = np.full((cfg.scan_capacity, 4), 1.0e7, np.float32)
-    buf[: len(scans[0])] = scans[0]
+    tss = tss or [None] * n
+    buf = odom.pad_chunk(scans[:1], tss[:1])[0]
     for _ in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pts = torch.from_numpy(buf).to(dev)
-        prep = pl.prepare_icp_inputs(state, pts, pts[:, 0] < 1.0e6, cfg)
+        pts, valid, ts = pl._split_packed(torch.from_numpy(buf).to(dev))
+        prep = pl.prepare_icp_inputs(state, pts, valid, ts, cfg)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         icp = pl.run_icp(state.map, prep, cfg)
@@ -712,8 +744,8 @@ def profile(name, odom, scans) -> None:
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for scan in scans:
-            odom.register_frame(scan)
+        for scan, ts in zip(scans, tss):
+            odom.register_frame(scan, ts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -729,6 +761,172 @@ def profile(name, odom, scans) -> None:
     for e in events:
         if any(k in e.key for k in PORT_KERNELS):
             print(line(e), flush=True)
+    return busy_us / 1e3 / n
+
+
+def run_cli(mode: str, extra: list) -> dict:
+    """Phase 9.1-9.2: the CLI in process, kitti preset with deskew, over
+    CLI_FRAMES synthetic frames into build/cli_smoke/<mode>; the gates on
+    its outputs, drops and launches. Returns the mode's numbers and path."""
+    from sage_icp_tpu_torch.ops import cuda_lib
+    from sage_icp_tpu_torch.runtime import cli
+
+    out = os.path.join(CLI_OUT, mode)
+    argv = ["--synthetic", "--preset", "kitti", "--deskew", "--frames", str(CLI_FRAMES), "--chunk", "8",
+            "--out", out, *extra]
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    res = cli.main(argv)["synthetic"]
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    with open(os.path.join(out, "metrics.json")) as f:
+        ate = json.load(f)["synthetic"]["ate_trans_m"]
+    files = {}
+    for name in ("path.txt", "gt_path.txt", "time.txt"):
+        with open(os.path.join(out, "synthetic", name)) as f:
+            files[name] = [ln.split() for ln in f.read().splitlines()]
+        if len(files[name]) != CLI_FRAMES:
+            fail(f"CLI {mode}: {name} has {len(files[name])} lines, expected {CLI_FRAMES}")
+    if not ate < 0.05:
+        fail(f"CLI {mode}: ATE {ate} m")
+    if int(res.totals.overflow_total()) != 0:
+        fail(f"CLI {mode}: silent-drop counters over all frames: {res.totals}")
+    if mode == "timed":
+        t_icp = [float(ln[1]) if ln[1] != "n/a" else float("nan") for ln in files["time.txt"]]
+        if not all(np.isfinite(t) and t > 0 for t in t_icp):
+            fail(f"CLI timed: t_icp not finite and positive on every line: {t_icp}")
+    replays = CLI_FRAMES if mode == "timed" else 0  # IcpTimer replays prepare and the solve each frame
+    expect_launches(f"CLI {mode}", launches, sum(res.iterations) + sum(res.replay_iterations), CLI_FRAMES,
+                    CLI_FRAMES + replays)
+    ms = 1e3 * res.mean_total_time
+    print(f"CLI {mode} ({' '.join(argv)}): ATE {ate:.5f} m, {ms:.3f} ms/frame (runner's mean_frame_time_s), "
+          f"wall {wall:.2f} s, ICP iterations {sum(res.iterations)} + {sum(res.replay_iterations)} in the "
+          f"timer's replays, launches {launches}", flush=True)
+    path = np.array([[float(v) for v in ln[1:4]] for ln in files["path.txt"]])
+    return dict(ate=ate, ms=ms, path=path)
+
+
+def skew(scans, frames):
+    """The kitti drive's first `frames` scans, each skewed by its own
+    frame's motion over the azimuth sweep phase, and the phases."""
+    from sage_icp_tpu_torch.datasets.kitti import azimuth_timestamps
+    from sage_icp_tpu_torch.ops import geometry as geo
+    from sage_icp_tpu_torch.utils import synthetic
+
+    gt = synthetic.make_trajectory(frames + 1, step=1.0)
+    skewed, tss = [], []
+    for i in range(frames):
+        delta = geo.se3_log(torch.as_tensor(np.linalg.inv(gt[i]) @ gt[i + 1], dtype=torch.float32)).numpy()
+        ts = azimuth_timestamps(scans[i][:, :3]).astype(np.float32)
+        skewed.append(synthetic.skew_scan(scans[i], delta, ts))
+        tss.append(ts)
+    return skewed, tss, gt[:frames]
+
+
+def deskew_drive(deskew: bool, scans, tss, gt):
+    """Phase 9.3: the kitti preset, deskew on or off, over the skewed
+    scans; no drop, the launches. Returns (odom, ATE, ms/frame)."""
+    import dataclasses
+
+    from sage_icp_tpu_torch.models.pipeline import PRESETS, SageICP
+    from sage_icp_tpu_torch.ops import cuda_lib
+
+    odom = SageICP(dataclasses.replace(PRESETS["kitti"], deskew=deskew))
+    cuda_lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for scan, ts in zip(scans, tss):
+        odom.register_frame(scan, ts)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / len(scans)
+    totals = odom.aux_totals()
+    name = f"skewed kitti drive, deskew {'on' if deskew else 'off'}"
+    if int(totals.overflow_total()) != 0:
+        fail(f"{name}: silent-drop counters over all frames: {totals}")
+    expect_launches(name, dict(cuda_lib.LAUNCHES), sum(odom.icp_iters), len(scans), len(scans))
+    ate = ate_of(odom.trajectory(), gt)
+    print(f"{name}: ATE {ate:.5f} m, {ms:.3f} ms/frame, ICP iterations {sum(odom.icp_iters)}", flush=True)
+    return odom, ate, ms
+
+
+def runtime_phase(kitti_scans, dev):
+    """Phase 9: the CLI chunked and timed, deskew at full width on the
+    skewed kitti drive (per-frame and chunked), the deskew on the card
+    against the CPU and its time, and a checkpoint resume. Returns (the
+    deskew-on odometry, the skewed scans and their timestamps, the
+    deskew's kernel time in ms)."""
+    from sage_icp_tpu_torch.models import pipeline as pl
+    from sage_icp_tpu_torch.models.state_io import state_to_numpy
+    from sage_icp_tpu_torch.ops import scan as scan_ops
+    from sage_icp_tpu_torch.runtime.checkpoint import load_state, save_state
+
+    chunked = run_cli("chunk", [])
+    timed = run_cli("timed", ["--timed-icp"])
+    gap = float(np.abs(chunked["path"] - timed["path"]).max())
+    print(f"CLI chunked against per-frame: max |path difference| {gap} m; ms/frame chunked "
+          f"{chunked['ms']:.3f} (render included), per-frame timed {timed['ms']:.3f} (register_frame only)",
+          flush=True)
+    if gap > 1e-5:
+        fail(f"CLI: the chunked and per-frame trajectories differ by {gap} m")
+
+    n = WARMUP + FRAMES
+    scans, tss, gt = skew(kitti_scans, len(kitti_scans))
+    _, ate_off, _ = deskew_drive(False, scans[:n], tss[:n], gt[:n])
+    odom, ate_on, frame_ms = deskew_drive(True, scans[:n], tss[:n], gt[:n])
+    print(f"deskew on the skewed kitti drive: ATE on {ate_on:.5f} m, off {ate_off:.5f} m", flush=True)
+    if not (ate_on < 0.05 and ate_on <= ate_off):
+        fail(f"deskew: ATE on {ate_on} m against off {ate_off} m")
+
+    # the same drive chunked (register_chunk, W = 8) against per-frame
+    chunked = pl.SageICP(odom.config)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, n, 8):
+        chunked.register_chunk(scans[i:i + 8], tss[i:i + 8])
+    gap = float(np.abs(chunked.trajectory() - odom.trajectory()).max())  # the fetch waits for the card
+    chunk_ms = 1e3 * (time.perf_counter() - t0) / n
+    print(f"the deskewed kitti drive chunked (W = 8): {chunk_ms:.3f} ms/frame against {frame_ms:.3f} per-frame; "
+          f"max |pose difference| {gap}", flush=True)
+    if gap > 1e-5 or int(chunked.aux_totals().overflow_total()) != 0:
+        fail("the chunked deskewed kitti drive differs from per-frame, or dropped work")
+
+    # one frame's deskew on the card against the CPU, between the poses the
+    # step of frame k deskews it with, and its device time
+    k = n // 2
+    traj = torch.from_numpy(odom.trajectory()).to(torch.float32)
+    buf = torch.from_numpy(odom.pad_chunk([scans[k]], [tss[k]])[0])
+    args = pl._split_packed(buf)
+    pts, ts, start, finish = (a.to(dev) for a in (args[0], args[2], traj[k - 2], traj[k - 1]))
+    cpu = scan_ops.deskew(args[0], args[2], traj[k - 2], traj[k - 1])
+    card = scan_ops.deskew(pts, ts, start, finish)
+    valid = args[1]
+    err = float((card.cpu()[valid] - cpu[valid]).abs().max())
+    deskew_ms = time_ms(lambda: scan_ops.deskew(pts, ts, start, finish))
+    deskew_kernel_ms = kernel_ms(lambda: scan_ops.deskew(pts, ts, start, finish))
+    print(f"deskew of frame {k} ({int(valid.sum())} points of {len(buf)}): card against CPU max |diff| {err} m; "
+          f"time_ms {deskew_ms:.4f}, kernel_ms {deskew_kernel_ms:.4f} at {len(buf)} points", flush=True)
+    if err > 1e-5:
+        fail(f"deskew on the card differs from the CPU by {err} m")
+
+    # checkpoint resume: half the drive, save, load into a fresh SageICP,
+    # the other half; against the uninterrupted deskew-on run
+    half = n // 2
+    first = pl.SageICP(odom.config)
+    for scan, ts in zip(scans[:half], tss[:half]):
+        first.register_frame(scan, ts)
+    path = os.path.join(CLI_OUT, "resume.npz")
+    save_state(path, first)
+    resumed = load_state(path, pl.SageICP(odom.config))
+    for scan, ts in zip(scans[half:n], tss[half:n]):
+        resumed.register_frame(scan, ts)
+    gap = float(np.abs(resumed.trajectory()[:, :3, 3] - odom.trajectory()[:, :3, 3]).max())
+    a, b = state_to_numpy(resumed.state), state_to_numpy(odom.state)
+    same_map = all(np.array_equal(a[f], b[f]) for f in a if f.startswith("map."))
+    print(f"checkpoint resume after frame {half}: trajectory max |diff| {gap} m against the uninterrupted run, "
+          f"map {'equal slot for slot' if same_map else 'DIFFERENT'}", flush=True)
+    if gap > 1e-5 or not same_map:
+        fail("checkpoint resume differs from the uninterrupted run")
+    return odom, scans, tss, deskew_kernel_ms
 
 
 def main() -> int:
@@ -780,9 +978,13 @@ def main() -> int:
         fail("SageICP() is not the kitti preset with its dynamic filter")
     kitti_scans, launches = drive("kitti", kitti, 1.3, WARMUP, FRAMES, extra)
     sort_launches = kitti_checks(kitti, kitti_scans[n - 1])
+    deskew_odom, skewed, tss, deskew_kernel_ms = runtime_phase(kitti_scans, dev)
     if args.profile:
         profile("city", city, city_scans[n:])
         profile("kitti", kitti, kitti_scans[n:])
+        busy = profile("kitti deskew", deskew_odom, skewed[n:], tss[n:])
+        print(f"deskew share of the deskew path's device busy time (kernel_ms / busy): {deskew_kernel_ms:.4f} / "
+              f"{busy:.3f} ms = {deskew_kernel_ms / busy:.4f}", flush=True)
     # launches: the kitti path's, the NN kernel's single-pass search and
     # the sort kernel's check on the filter's keys
     launches.update(fused_semantic_nn=nn_launches, bitonic_sort_planes=sort_launches)

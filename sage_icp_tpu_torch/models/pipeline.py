@@ -2,19 +2,23 @@
 
 One step (odometry_step) runs, as in the reference's sageICP.cpp:
 
-    preprocess -> dynamic vehicle filter (when configured) -> double
-    class-adaptive voxel downsample -> adaptive threshold ->
-    constant-velocity prediction -> semantic ICP -> solve health guard ->
-    map insert -> distance cull
+    deskew (when configured, from the third pose on) -> preprocess ->
+    dynamic vehicle filter (when configured) -> double class-adaptive
+    voxel downsample -> adaptive threshold -> constant-velocity
+    prediction -> semantic ICP -> solve health guard -> map insert ->
+    distance cull
 
 on fixed-capacity tensors of one device, and SageICP wraps it with the
-host-side padding and the trajectory log. The configuration and presets
-are this package's own copy of the JAX reference's (field for field);
-SageICP() runs the default, the production `kitti` preset.
+host-side padding, the trajectory log and the chunked offline mode. A
+scan goes to the device as one packed (cap, 4|5) buffer: xyz, label and,
+with deskew on, a timestamp lane; float32, or int16 with
+quantized_scan_upload. The configuration and presets are this package's
+own copy of the JAX reference's (field for field); SageICP() runs the
+default, the production `kitti` preset.
 
-Not in this package yet: deskew, the dense grid index, the int16 scan
-upload and the chunked step; a configuration that turns one of them on is
-refused (check_supported).
+Not in this package: the dense grid index (default off in the reference
+and measured slower there); a configuration that turns it on is refused
+(check_supported).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from sage_icp_tpu_torch.datasets.kitti import azimuth_timestamps
 from sage_icp_tpu_torch.ops import correspondence_fast as cf
 from sage_icp_tpu_torch.ops import dynamic_filter as dyn
 from sage_icp_tpu_torch.ops import geometry as geo
@@ -229,10 +234,15 @@ def _fast_ok(config: SageConfig) -> bool:
         config.voxel_size_map, config.local_map_range, config.max_range)
 
 
-def prepare_icp_inputs(state: OdomState, points, valid, config: SageConfig) -> dict:
-    """Everything of the step before the ICP solve."""
+def prepare_icp_inputs(state: OdomState, points, valid, timestamps, config: SageConfig) -> dict:
+    """Everything of the step before the ICP solve. timestamps (cap,) in
+    [0, 1] are read only with config.deskew."""
     dev = points.device
     eye = _eye(dev)
+    if config.deskew:
+        # gated on the device (no host sync): from the third pose on
+        deskewed = scan_ops.deskew(points, timestamps, state.prev_pose, state.last_pose)
+        points = torch.where(state.num_poses > 2, deskewed, points)
     cropped, crop_valid = scan_ops.preprocess(
         points, valid, config.max_range, config.min_range, config.label_max_range)
     dyn_overflow = _i32(0, dev)
@@ -286,22 +296,21 @@ def basic_label_mask(config: SageConfig, device, num_labels: int = 260) -> torch
 
 
 def check_supported(config: SageConfig) -> None:
-    """Refuse the settings this package does not implement yet, rather
-    than ignore them."""
-    missing = [name for name in ("deskew", "dense_grid", "quantized_scan_upload")
-               if getattr(config, name)]
-    if missing:
-        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+    """Refuse the setting this package does not implement, rather than
+    ignore it."""
+    if config.dense_grid:
+        raise NotImplementedError("not ported: dense_grid")
 
 
-def odometry_step(state: OdomState, points, valid, config: SageConfig):
+def odometry_step(state: OdomState, points, valid, timestamps, config: SageConfig):
     """One odometry step. points (scan_capacity, 4) sensor-frame
-    xyz+label; valid (scan_capacity,). Returns (new_state, pose (4, 4),
+    xyz+label; valid (scan_capacity,); timestamps (scan_capacity,) in
+    [0, 1], read only with config.deskew. Returns (new_state, pose (4, 4),
     aux). The ICP loop waits for the device at its start and once per
     iteration (ops/registration.py)."""
     check_supported(config)
     dev = points.device
-    prep = prepare_icp_inputs(state, points, valid, config)
+    prep = prepare_icp_inputs(state, points, valid, timestamps, config)
     source_valid = prep["source_valid"]
     frame_ds, frame_valid = prep["frame_ds"], prep["frame_valid"]
     initial_guess = prep["initial_guess"]
@@ -362,6 +371,70 @@ def odometry_step(state: OdomState, points, valid, config: SageConfig):
     return new_state, new_pose, aux
 
 
+# int16 upload: xyz in units of 2^-8 m; an invalid row holds 32767 in
+# lane 0 (no real coordinate reaches +127.996 m after the range crop);
+# timestamps scale by 2^15 - 1
+QSCAN_SCALE = 1.0 / 256.0
+QSCAN_INVALID = 32767
+QTS_SCALE = 32767.0
+
+
+def _split_packed(pts: torch.Tensor):
+    """(cap, 4|5) packed buffer -> (points (cap, 4), valid, timestamps).
+    Lane 4, when present, holds per-point timestamps; validity comes from
+    the pad sentinel. int16 buffers are the quantized upload format."""
+    if pts.dtype == torch.int16:
+        valid = pts[:, 0] != QSCAN_INVALID
+        xyz = pts[:, :3].to(torch.float32) * QSCAN_SCALE
+        lab = pts[:, 3:4].to(torch.float32)
+        out = torch.where(valid[:, None], torch.cat([xyz, lab], dim=-1), scan_ops.INVALID_COORD)
+        if pts.shape[1] == 5:
+            ts = torch.where(valid, pts[:, 4].to(torch.float32) / QTS_SCALE, 0.0)
+        else:
+            ts = torch.zeros(pts.shape[0], dtype=torch.float32, device=pts.device)
+        return out, valid, ts
+    valid = pts[:, 0] < 1.0e6  # INVALID_COORD sentinel
+    if pts.shape[1] == 5:
+        return pts[:, :4], valid, torch.where(valid, pts[:, 4], 0.0)
+    return pts, valid, torch.zeros(pts.shape[0], dtype=pts.dtype, device=pts.device)
+
+
+def _quantize_scan_host(rows: np.ndarray, out: np.ndarray) -> None:
+    """Host-side int16 packing of (n, 4|5) float rows into out[:n]."""
+    n = len(rows)
+    out[:n, :3] = np.clip(np.round(rows[:, :3] / QSCAN_SCALE), -32700, 32700).astype(np.int16)
+    out[:n, 3] = rows[:, 3].astype(np.int16)
+    if out.shape[1] == 5 and rows.shape[1] >= 5:
+        out[:n, 4] = np.clip(np.round(rows[:, 4] * QTS_SCALE), 0, 32767).astype(np.int16)
+
+
+def _fold_aux(totals: StepAux | None, aux: StepAux) -> StepAux:
+    """Running totals: the last frame's sigma, iterations and
+    correspondences, the max of the occupancy stats, every counter summed."""
+    if totals is None:
+        return aux
+    return StepAux(*[
+        a if f in _AUX_LAST else torch.maximum(t, a) if f in _AUX_MAX else t + a
+        for f, t, a in zip(StepAux._fields, totals, aux)
+    ])
+
+
+def chunk_step(state: OdomState, scans: torch.Tensor, config: SageConfig):
+    """Offline mode: (state, scans (W, cap, 4|5) on the device) -> (state',
+    poses (W, 4, 4) on the device, per-frame ICP iterations (list of W
+    ints), aux aggregated over the chunk: drop counters summed, occupancy
+    maxed, sigma/iterations/correspondences of the last frame). The W
+    steps are the single-frame steps in order, on one upload."""
+    poses, iters, agg = [], [], None
+    for pts in scans:
+        p, valid, ts = _split_packed(pts)
+        state, pose, aux = odometry_step(state, p, valid, ts, config)
+        poses.append(pose)
+        iters.append(int(aux.icp_iterations))
+        agg = _fold_aux(agg, aux)
+    return state, torch.stack(poses), iters, agg
+
+
 def resolve_device(device=None) -> torch.device:
     """None means the card. Without one, only an explicit "cpu" runs:
     the port never falls back to the CPU on its own."""
@@ -374,7 +447,7 @@ def resolve_device(device=None) -> torch.device:
 class SageICP:
     """Stateful wrapper: pads scans to the fixed capacity, steps the
     pipeline on `device` (default the card) and keeps the trajectory and
-    running totals of the per-frame counters."""
+    running totals of the per-frame counters (no per-frame aux log)."""
 
     def __init__(self, config: SageConfig | str = "kitti", device=None):
         if isinstance(config, str):
@@ -388,35 +461,79 @@ class SageICP:
     def reinitialize(self):
         """Empty map, empty trajectory (reference sageICP.hpp:94-99)."""
         self.state = init_state(self.config, self.device)
-        self.poses: list[np.ndarray] = []
+        self.poses: list = []  # (4, 4) numpy, or device tensors (4, 4) / (W, 4, 4)
         self.timings: list[float] = []
         self.icp_iters: list[int] = []
         self._last_aux = None
         self._totals = None
 
-    def register_frame(self, points: np.ndarray) -> np.ndarray:
-        """points (n, 4) float xyz+label -> the 4x4 pose (numpy)."""
-        cap = self.config.scan_capacity
-        n = min(len(points), cap)
-        buf = np.full((cap, 4), scan_ops.INVALID_COORD, dtype=np.float32)
-        buf[:n] = np.asarray(points[:n, :4], dtype=np.float32)
-        t0 = time.perf_counter()
-        pts = torch.from_numpy(buf).to(self.device)
-        valid = pts[:, 0] < 1.0e6  # padding rows carry INVALID_COORD
-        self.state, pose, aux = odometry_step(self.state, pts, valid, self.config)
+    def pad_chunk(self, scans: list, timestamps: list | None = None) -> np.ndarray:
+        """(W, scan_capacity, 4|5) packed host buffer: float32 rows padded
+        with INVALID_COORD, or int16 (quantized_scan_upload) padded with
+        QSCAN_INVALID. With deskew on, lane 4 holds per-point timestamps
+        (given, or the azimuth phase)."""
+        cfg = self.config
+        cap = cfg.scan_capacity
+        lanes = 5 if cfg.deskew else 4
+        if cfg.quantized_scan_upload:
+            buf = np.full((len(scans), cap, lanes), QSCAN_INVALID, dtype=np.int16)
+        else:
+            buf = np.full((len(scans), cap, lanes), scan_ops.INVALID_COORD, dtype=np.float32)
+        for i, s in enumerate(scans):
+            n = min(len(s), cap)
+            rows = np.asarray(s[:n, :4], dtype=np.float32)
+            if lanes == 5:
+                ts = timestamps[i] if timestamps is not None else None
+                ts = azimuth_timestamps(rows[:, :3]) if ts is None else ts[:n]
+                rows = np.concatenate([rows, np.asarray(ts, np.float32)[:, None]], axis=1)
+            if cfg.quantized_scan_upload:
+                _quantize_scan_host(rows, buf[i])
+            else:
+                buf[i, :n] = rows
+        return buf
+
+    def _record(self, aux: StepAux, iters: list[int]) -> None:
         self._last_aux = aux
-        self._totals = aux if self._totals is None else StepAux(*[
-            a if f in _AUX_LAST else torch.maximum(t, a) if f in _AUX_MAX else t + a
-            for f, t, a in zip(StepAux._fields, self._totals, aux)
-        ])
-        pose = pose.cpu().numpy()
+        self._totals = _fold_aux(self._totals, aux)
+        self.icp_iters.extend(iters)
+
+    def register_frame(self, points: np.ndarray, timestamps: np.ndarray | None = None,
+                       block: bool = True):
+        """points (n, 4) float xyz+label -> the 4x4 pose. timestamps (n,)
+        in [0, 1] are used with deskew on; without them the azimuth phase
+        stands in. block=False returns the pose as a device tensor without
+        waiting; trajectory() fetches it."""
+        buf = self.pad_chunk([points], None if timestamps is None else [timestamps])[0]
+        t0 = time.perf_counter()
+        pts, valid, ts = _split_packed(torch.from_numpy(buf).to(self.device))
+        self.state, pose, aux = odometry_step(self.state, pts, valid, ts, self.config)
+        self._record(aux, [int(aux.icp_iterations)])
+        if block:
+            pose = pose.cpu().numpy()
         self.timings.append(time.perf_counter() - t0)
-        self.icp_iters.append(int(aux.icp_iterations))
         self.poses.append(pose)
         return pose
 
+    def register_chunk(self, scans, timestamps: list | None = None) -> torch.Tensor:
+        """Offline mode: W frames on one upload (chunk_step). scans: a list
+        of (n, 4) arrays or a padded (W, cap, 4|5) buffer from pad_chunk.
+        Appends the (W, 4, 4) device poses to the trajectory and returns
+        them without waiting."""
+        if isinstance(scans, list):
+            scans = self.pad_chunk(scans, timestamps)
+        dev_scans = torch.as_tensor(scans).to(self.device)
+        self.state, poses, iters, aux = chunk_step(self.state, dev_scans, self.config)
+        self._record(aux, iters)
+        self.poses.append(poses)
+        return poses
+
+    def iteration_counts(self) -> np.ndarray:
+        """(N,) per-frame ICP iteration counts."""
+        return np.asarray(self.icp_iters, dtype=np.int32)
+
     @property
     def last_aux(self) -> StepAux:
+        """The last call's aux: a frame's, or a chunk's aggregate."""
         return StepAux(*[np.asarray(a.cpu()) for a in self._last_aux])
 
     def aux_totals(self) -> StepAux:
@@ -426,8 +543,19 @@ class SageICP:
         return StepAux(*[np.asarray(a.cpu()) for a in self._totals])
 
     def trajectory(self) -> np.ndarray:
-        """(N, 4, 4) poses."""
-        return np.stack(self.poses) if self.poses else np.zeros((0, 4, 4))
+        """(N, 4, 4) poses; the poses held on the device come over in one
+        transfer."""
+        if not self.poses:
+            return np.zeros((0, 4, 4))
+        held = [p.reshape(-1, 4, 4) for p in self.poses if torch.is_tensor(p)]
+        fetched = iter(torch.cat(held).cpu().numpy()) if held else None
+        out = []
+        for p in self.poses:
+            if torch.is_tensor(p):
+                out.extend(next(fetched) for _ in range(p.reshape(-1, 4, 4).shape[0]))
+            else:
+                out.append(np.asarray(p).reshape(4, 4))
+        return np.stack(out)
 
     def local_map(self) -> np.ndarray:
         pts, mask = hm.pointcloud(self.state.map, self.config.voxel_size_map)

@@ -7,7 +7,12 @@ device and keeps their dtype (float32 on the odometry path).
 
 Pose products run in full float32: `pin_full_fp32` turns TF32 off for
 cuBLAS and cuDNN (the reference pins precision="highest" on the same
-matmuls), and the entry points call it.
+matmuls), and the entry points call it. sin, cos and atan2 are evaluated
+in float64 and rounded, so a float32 result is the correctly rounded one
+on the CPU and on the card alike: the coefficient (1 - cos t) / t^2 of
+small rotations turns one ulp of cos into a visible error (up to 1e-5 m
+in a deskewed point), and PyTorch's float32 cos on the CPU is not
+correctly rounded near 0.
 """
 
 from __future__ import annotations
@@ -21,6 +26,14 @@ def pin_full_fp32() -> None:
     """Keep float32 matmuls and convolutions out of TF32 on the card."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def _sin(x: torch.Tensor) -> torch.Tensor:
+    return torch.sin(x.to(torch.float64)).to(x.dtype)
+
+
+def _cos(x: torch.Tensor) -> torch.Tensor:
+    return torch.cos(x.to(torch.float64)).to(x.dtype)
 
 
 def _eye3(like: torch.Tensor) -> torch.Tensor:
@@ -40,16 +53,26 @@ def hat(v: torch.Tensor) -> torch.Tensor:
     )
 
 
-def so3_exp(phi: torch.Tensor) -> torch.Tensor:
-    """Rodrigues formula with a series branch near zero."""
+def _so3_terms(phi: torch.Tensor):
+    """The parts of exp(phi) that so3_exp and se3_exp share: theta^2,
+    theta, the series-branch mask, sin(theta), b = (1 - cos t) / t^2,
+    K = hat(phi) and K @ K."""
     theta2 = torch.sum(phi * phi, dim=-1)
     theta = torch.sqrt(theta2 + _EPS * _EPS)
     small = theta < 1e-4
-    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
-    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - _cos(theta)) / theta2)
     K = hat(phi)
-    KK = K @ K
+    return theta2, theta, small, _sin(theta), b, K, K @ K
+
+
+def _rodrigues(phi, theta2, theta, small, sin_t, b, K, KK) -> torch.Tensor:
+    a = torch.where(small, 1.0 - theta2 / 6.0, sin_t / theta)
     return _eye3(phi) + a[..., None, None] * K + b[..., None, None] * KK
+
+
+def so3_exp(phi: torch.Tensor) -> torch.Tensor:
+    """Rodrigues formula with a series branch near zero."""
+    return _rodrigues(phi, *_so3_terms(phi))
 
 
 def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
@@ -86,7 +109,7 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     w = q[..., 0]
     xyz = q[..., 1:]
     n = torch.linalg.vector_norm(xyz, dim=-1)
-    angle = 2.0 * torch.atan2(n, w)
+    angle = 2.0 * torch.atan2(n.to(torch.float64), w.to(torch.float64)).to(n.dtype)
     scale = torch.where(
         n < 1e-7,
         2.0 / torch.clamp(w, min=_EPS),
@@ -106,20 +129,12 @@ def _rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     """se(3) exp: [rho, phi] -> 4x4."""
     rho, phi = xi[..., :3], xi[..., 3:]
-    theta2 = torch.sum(phi * phi, dim=-1)
-    theta = torch.sqrt(theta2 + _EPS * _EPS)
-    small = theta < 1e-4
-    R = so3_exp(phi)
-    K = hat(phi)
-    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
-    c = torch.where(
-        small,
-        1.0 / 6.0 - theta2 / 120.0,
-        (theta - torch.sin(theta)) / (theta2 * theta),
-    )
-    V = _eye3(xi) + b[..., None, None] * K + c[..., None, None] * (K @ K)
+    terms = _so3_terms(phi)
+    theta2, theta, small, sin_t, b, K, KK = terms
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (theta - sin_t) / (theta2 * theta))
+    V = _eye3(xi) + b[..., None, None] * K + c[..., None, None] * KK
     t = (V @ rho[..., None])[..., 0]
-    return _rt_to_mat(R, t)
+    return _rt_to_mat(_rodrigues(phi, *terms), t)
 
 
 def se3_log(T: torch.Tensor) -> torch.Tensor:
@@ -135,7 +150,7 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
     cot_term = torch.where(
         small,
         1.0 / 12.0 + theta2 / 720.0,
-        (1.0 - half * torch.cos(half) / torch.clamp(torch.sin(half), min=_EPS)) / theta2,
+        (1.0 - half * _cos(half) / torch.clamp(_sin(half), min=_EPS)) / theta2,
     )
     Vinv = _eye3(T) - 0.5 * K + cot_term[..., None, None] * (K @ K)
     rho = (Vinv @ t[..., None])[..., 0]
@@ -169,3 +184,22 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
 def rotation_angle(R: torch.Tensor) -> torch.Tensor:
     """Angle of a rotation matrix (norm of its log)."""
     return torch.linalg.vector_norm(so3_log(R), dim=-1)
+
+
+def umeyama_alignment(src: torch.Tensor, dst: torch.Tensor, with_scale: bool = False) -> torch.Tensor:
+    """Closed-form alignment dst ~= c R src + t (Eigen::umeyama, used by
+    the ATE metric, reference metrics/Metrics.cpp:169). src, dst (N, 3);
+    returns the 4x4 transform in their dtype."""
+    mu_s, mu_d = src.mean(dim=0), dst.mean(dim=0)
+    sc, dc = src - mu_s, dst - mu_d
+    cov = dc.T @ sc / src.shape[0]
+    U, D, Vt = torch.linalg.svd(cov)
+    S = torch.eye(3, dtype=src.dtype, device=src.device)
+    if torch.linalg.det(U) * torch.linalg.det(Vt) < 0:
+        S[2, 2] = -1.0
+    R = U @ S @ Vt
+    c = torch.trace(torch.diag(D) @ S) / torch.mean(torch.sum(sc * sc, dim=-1)) if with_scale else 1.0
+    T = torch.eye(4, dtype=src.dtype, device=src.device)
+    T[:3, :3] = c * R
+    T[:3, 3] = mu_d - c * (R @ mu_s)
+    return T

@@ -199,14 +199,15 @@ def gn_terms(cx, cy, cz, cl, offx, offy, offz, q0, origin, row_abs, used, T,
     """Plain version of the GN kernel before its reduction: the (18, R*P)
     per-slot terms whose row sums are the kernel's output. A dead tile
     reads tile_map's block as the reference does; its used flags are its
-    own (all zero), so it adds zeros."""
+    own (all zero), so it adds zeros: a row without a used slot is left
+    at zero and not evaluated (the sums keep their order)."""
     R = cx.shape[0]
     P = used.shape[1]
     dev = cx.device
-    rows = torch.arange(R, device=dev)
+    rows = torch.nonzero((used != 0).any(dim=1))[:, 0]
     src = (tile_map.long()[rows // TILE_ROWS] * TILE_ROWS + rows % TILE_ROWS).clamp(max=R - 1)
     cxf, cyf, czf, clf, invalid = _dequant(cx[src], cy[src], cz[src], cl[src], offx, offy, offz, scale)
-    q = q0[src].reshape(R, P, 4)
+    q = q0[src].reshape(len(rows), P, 4)
     org = origin[src]
     rab = row_abs[src]
     T = T.to(device=dev, dtype=torch.float32)
@@ -214,7 +215,7 @@ def gn_terms(cx, cy, cz, cl, offx, offy, offz, q0, origin, row_abs, used, T,
     sx = T[0, 0] * x0 + T[0, 1] * y0 + T[0, 2] * z0 + T[0, 3]
     sy = T[1, 0] * x0 + T[1, 1] * y0 + T[1, 2] * z0 + T[1, 3]
     sz = T[2, 0] * x0 + T[2, 1] * y0 + T[2, 2] * z0 + T[2, 3]
-    use = used != 0
+    use = used[rows] != 0
     for s, a in ((sx, 0), (sy, 1), (sz, 2)):
         use = use & (torch.abs(trunc_div(s, voxel_size) - rab[:, a : a + 1]) <= 1)
     qx, qy, qz = sx - org[:, 0:1], sy - org[:, 1:2], sz - org[:, 2:3]
@@ -234,7 +235,9 @@ def gn_terms(cx, cy, cz, cl, offx, offy, offz, q0, origin, row_abs, used, T,
         w * (sy * rz - sz * ry), w * (sz * rx - sx * rz), w * (sx * ry - sy * rx),
         accept.to(torch.float32), use.to(torch.float32),
     ]
-    return torch.stack(terms).reshape(N_SUMS, R * P)
+    out = torch.zeros((N_SUMS, R, P), dtype=torch.float32, device=dev)
+    out[:, rows] = torch.stack(terms)
+    return out.reshape(N_SUMS, R * P)
 
 
 def assemble_normal_equations(sums: torch.Tensor):

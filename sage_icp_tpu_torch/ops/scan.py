@@ -1,9 +1,13 @@
-"""Scan-level ops: range crop, label-range masking and class-adaptive
-voxel downsampling, fixed-shape and masked like the JAX reference.
+"""Scan-level ops: range crop, label-range masking, deskew and
+class-adaptive voxel downsampling, fixed-shape and masked like the JAX
+reference.
 
   * preprocess keeps min_range < ||p|| < max_range and zeroes labels
     beyond label_max_range; dropped points move to INVALID_COORD and
     carry valid = False (the shape never changes).
+  * deskew is constant-velocity motion compensation: each point moves by
+    exp((t - 0.5) * log(start^-1 finish)) for its sweep phase t in [0, 1]
+    (reference core/Deskew.cpp:36-50).
   * voxel_downsample keeps the FIRST point in scan order of every
     (class group, voxel) cell, one grid per class group at that group's
     voxel size times vox_scale; labels in no group are dropped.
@@ -14,6 +18,8 @@ Voxel coordinates truncate toward zero (C's static_cast<int>), not floor.
 from __future__ import annotations
 
 import torch
+
+from sage_icp_tpu_torch.ops import geometry as geo
 
 # Sentinel coordinate of invalid points: far outside any map.
 INVALID_COORD = 1.0e7
@@ -47,6 +53,26 @@ def preprocess(points, valid, max_range: float, min_range: float, label_max_rang
     pts = torch.cat([points[:, :3], label[:, None]], dim=-1)
     pts = torch.where(keep[:, None], pts, torch.full_like(pts, INVALID_COORD))
     return pts, keep
+
+
+def deskew(points, timestamps, start_pose, finish_pose):
+    """points (N, 4) xyz+label, timestamps (N,) in [0, 1], start/finish
+    (4, 4) poses -> (N, 4), xyz moved by exp((t - 0.5) * delta),
+    delta = log(start^-1 finish), all in float32 as in the reference.
+
+    The rotation is applied as the reference's einsum rounds it on the
+    CPU, a fused multiply-add chain fma(R2, z, fma(R1, y, R0 * x)), then
+    + t. Each fused step is one float64 product and sum (the product of
+    two float32 values is exact there) rounded to float32, so the card and
+    the CPU give the same bits."""
+    delta = geo.se3_log(geo.se3_inverse(start_pose) @ finish_pose)  # (6,)
+    T = geo.se3_exp((timestamps - 0.5)[:, None] * delta[None, :])  # (N, 4, 4)
+    R = T[:, :3, :3].to(torch.float64)
+    p = points[:, :3].to(torch.float64)
+    acc = (R[:, :, 0] * p[:, 0:1]).to(torch.float32)
+    acc = (acc.to(torch.float64) + R[:, :, 1] * p[:, 1:2]).to(torch.float32)
+    acc = (acc.to(torch.float64) + R[:, :, 2] * p[:, 2:3]).to(torch.float32)
+    return torch.cat([acc + T[:, :3, 3], points[:, 3:]], dim=-1)
 
 
 def make_label_group_lut(voxel_labels, num_labels: int = 260, device=None) -> torch.Tensor:

@@ -500,6 +500,26 @@ def make_maneuver_trajectory(
     return np.stack(poses)
 
 
+def skew_scan(scan: np.ndarray, delta_twist: np.ndarray, timestamps: np.ndarray) -> np.ndarray:
+    """Apply intra-scan motion distortion to a rendered (mid-pose) scan:
+    the point seen at sweep phase t was observed from the pose
+    exp((t - 0.5) * delta) relative to mid-scan, so the raw measurement is
+    exp((t - 0.5) * delta)^-1 p, which deskew inverts (reference
+    core/Deskew.cpp:36-50). delta_twist (6,) = log(per-frame motion);
+    timestamps (n,) in [0, 1]. The exponential runs in float32 torch on
+    the CPU (the package's geometry), the transform in numpy."""
+    import torch
+
+    from sage_icp_tpu_torch.ops import geometry as geo
+
+    scaled = (-(timestamps - 0.5))[:, None] * delta_twist[None, :]
+    T = geo.se3_exp(torch.as_tensor(scaled, dtype=torch.float32)).numpy()
+    xyz = np.einsum("nij,nj->ni", T[:, :3, :3], scan[:, :3]) + T[:, :3, 3]
+    out = scan.copy()
+    out[:, :3] = xyz.astype(np.float32)
+    return out
+
+
 def render_scan(
     world_pts: np.ndarray,
     world_labels: np.ndarray,

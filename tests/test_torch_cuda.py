@@ -1,8 +1,10 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
 version, the ICP solve and the dynamic-vehicle filter against the port on
-the CPU, and the odometry step on the reference suite's trajectories
+the CPU, the odometry step on the reference suite's trajectories
 (golden fixture, turn-stop-reverse maneuver, undersized capacities, a
-garbage scan) and on the default `kitti` preset. This file imports no
+garbage scan, motion-skewed scans with deskew on and off) and on the
+default `kitti` preset, the deskew gate, the chunked step against single
+frames and a checkpoint resume. This file imports no
 JAX, so it runs where only PyTorch is installed (tests/conftest.py
 imports jax, hence --noconftest):
 
@@ -16,7 +18,10 @@ filter's keep mask and overflow bit for bit; the GN sums within 1e-5 of
 the sum of their terms' magnitudes (only the summation order differs);
 poses within 1e-4 of the CPU run; the golden trajectory within
 0.02 m / 0.02; the maneuver ATE below 0.30 m and re-lock after a garbage
-scan within 0.25 m, as in tests/test_robustness.py.
+scan within 0.25 m, deskew on below 0.7x off and 0.10 m, as in
+tests/test_robustness.py; chunked against single frames within 1e-5
+(tests/test_pipeline.py); a resumed run within 1e-5 m of the
+uninterrupted one, its map equal slot for slot.
 
 The seeded input builders here are shared with tests/test_torch_kernels.py
 and tests/test_torch_dynfilter.py.
@@ -652,3 +657,91 @@ def test_kitti_default_preset_on_card(card):
     g0 = np.linalg.inv(gt[0])
     err = [np.linalg.norm(e[:3, 3] - (g0 @ g)[:3, 3]) for e, g in zip(odom.trajectory(), gt)]
     assert max(err) < 0.05
+
+
+def skewed_city_drive(world, frames=12, step=2.0):
+    """tests/test_robustness.py's deskew drive: scans skewed by their
+    frame's motion over the azimuth sweep phase."""
+    from sage_icp_tpu_torch.datasets.kitti import azimuth_timestamps
+
+    gt = synthetic.make_trajectory(frames, step=step, accel_frames=4)
+    rng = np.random.default_rng(5)
+    scans, tss = [], []
+    for i in range(frames):
+        scan = synthetic.render_scan(*world, gt[i], rng, n_target=14000)
+        nxt = gt[min(i + 1, frames - 1)]
+        delta = tgeo.se3_log(torch.as_tensor(np.linalg.inv(gt[i]) @ nxt, dtype=torch.float32)).numpy()
+        ts = azimuth_timestamps(scan[:, :3])
+        scans.append(synthetic.skew_scan(scan, delta, ts))
+        tss.append(ts)
+    return scans, tss, gt
+
+
+@pytest.mark.cuda
+def test_deskew_reduces_ate_on_card(card, small_city):
+    """test_deskew_reduces_ate_on_distorted_scans on the card: on < 0.7 x
+    off, on < 0.10 m, no drop."""
+    scans, tss, gt = skewed_city_drive(small_city)
+    ates = {}
+    for deskew in (False, True):
+        odom = tpl.SageICP(golden_config(deskew=deskew))
+        for s, ts in zip(scans, tss):
+            odom.register_frame(s, ts)
+        assert int(odom.aux_totals().overflow_total()) == 0
+        ates[deskew] = ate(odom.trajectory(), gt)
+    assert ates[True] < 0.7 * ates[False] and ates[True] < 0.10, ates
+
+
+@pytest.mark.cuda
+def test_deskew_gate_on_card(card, small_city):
+    """SageICP(device=None) with deskew on: frames 0-2 run undeskewed (the
+    poses equal a deskew-off run's bit for bit), frame 3 deskews
+    (num_poses > 2)."""
+    scans, tss, _ = skewed_city_drive(small_city, frames=4)
+    on, off = tpl.SageICP(golden_config(deskew=True)), tpl.SageICP(golden_config())
+    assert on.device.type == "cuda"
+    poses = [(on.register_frame(s, ts), off.register_frame(s, ts)) for s, ts in zip(scans, tss)]
+    for a, b in poses[:3]:
+        np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(*poses[3])
+
+
+@pytest.mark.cuda
+def test_chunked_equals_per_frame_on_card(card):
+    pts, labs = synthetic.build_world(seed=1, length=80.0)
+    gt = synthetic.make_trajectory(6, step=0.8)
+    rng = np.random.default_rng(7)
+    scans = [synthetic.render_scan(pts, labs, gt[i], rng, n_target=6000) for i in range(6)]
+    a, b = tpl.SageICP(golden_config()), tpl.SageICP(golden_config())
+    for s in scans:
+        a.register_frame(s)
+    b.register_chunk(scans[:3])
+    b.register_chunk(scans[3:])
+    np.testing.assert_allclose(a.trajectory(), b.trajectory(), atol=1e-5)
+    np.testing.assert_array_equal(a.iteration_counts(), b.iteration_counts())
+    assert int(b.aux_totals().overflow_total()) == 0
+
+
+@pytest.mark.cuda
+def test_checkpoint_resume_on_card(card, small_city, tmp_path):
+    """Save after 6 of 12 deskewed frames, load into a fresh SageICP, run
+    the rest: the trajectory and the map of the uninterrupted run."""
+    from sage_icp_tpu_torch.models.state_io import state_to_numpy
+    from sage_icp_tpu_torch.runtime.checkpoint import load_state, save_state
+
+    scans, tss, _ = skewed_city_drive(small_city)
+    cfg = golden_config(deskew=True)
+    whole, first = tpl.SageICP(cfg), tpl.SageICP(cfg)
+    for s, ts in zip(scans, tss):
+        whole.register_frame(s, ts)
+    for s, ts in zip(scans[:6], tss[:6]):
+        first.register_frame(s, ts)
+    save_state(str(tmp_path / "state.npz"), first)
+    resumed = load_state(str(tmp_path / "state.npz"), tpl.SageICP(cfg))
+    for s, ts in zip(scans[6:], tss[6:]):
+        resumed.register_frame(s, ts)
+    np.testing.assert_allclose(resumed.trajectory(), whole.trajectory(), atol=1e-5)
+    a, b = state_to_numpy(resumed.state), state_to_numpy(whole.state)
+    for k in a:
+        if k.startswith("map."):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)

@@ -204,7 +204,7 @@ def test_prepare_icp_inputs_with_filter_matches_jax(city_scan):
     buf, valid = pad_scan(city_scan, jcfg.scan_capacity)
     prepare = jax.jit(functools.partial(jpl.prepare_icp_inputs, config=jcfg))
     want = prepare(jpl.init_state(jcfg), jnp.asarray(buf), jnp.asarray(valid), jnp.zeros(len(buf), jnp.float32))
-    got = tpl.prepare_icp_inputs(tpl.init_state(tcfg, "cpu"), t(buf), t(valid), tcfg)
+    got = tpl.prepare_icp_inputs(tpl.init_state(tcfg, "cpu"), t(buf), t(valid), torch.zeros(len(buf)), tcfg)
     for name in ("source", "source_valid", "frame_ds", "frame_valid", "ds_trunc", "dyn_overflow"):
         np.testing.assert_array_equal(got[name].numpy(), np.asarray(want[name]), err_msg=name)
     frame_labels = got["frame_ds"][got["frame_valid"], 3].to(torch.int32).numpy()

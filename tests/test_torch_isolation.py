@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: it never imports JAX or the JAX package,
-it never falls back to the CPU on its own, and it refuses settings it
-does not implement instead of ignoring them."""
+"""The PyTorch port stands alone: it never imports JAX or the JAX package
+(its CLI included), it never falls back to the CPU on its own, and it
+refuses the setting it does not implement (dense_grid) instead of
+ignoring it."""
 
 import dataclasses
 import pathlib
@@ -31,8 +32,29 @@ def test_port_modules_and_chip_smoke_import_without_jax():
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
     assert out.returncode == 0, out.stderr
-    assert len(MODULES) >= 12
-    assert {"sage_icp_tpu_torch.ops.dynamic_filter", "sage_icp_tpu_torch.ops.sort_kernel"} <= set(MODULES)
+    assert len(MODULES) >= 25
+    assert {"sage_icp_tpu_torch.ops.dynamic_filter", "sage_icp_tpu_torch.ops.sort_kernel",
+            "sage_icp_tpu_torch.datasets.kitti", "sage_icp_tpu_torch.datasets.kitti360",
+            "sage_icp_tpu_torch.datasets.kitti_raw", "sage_icp_tpu_torch.datasets.labels",
+            "sage_icp_tpu_torch.metrics.kitti", "sage_icp_tpu_torch.runtime.cli",
+            "sage_icp_tpu_torch.runtime.runner", "sage_icp_tpu_torch.runtime.checkpoint",
+            "sage_icp_tpu_torch.runtime.keyframes", "sage_icp_tpu_torch.runtime.overlay",
+            "sage_icp_tpu_torch.utils.labels", "sage_icp_tpu_torch.utils.visualization"} <= set(MODULES)
+
+
+def test_cli_help_runs_without_jax():
+    """`python -m sage_icp_tpu_torch.runtime.cli --help` with jax and the
+    JAX package made unimportable."""
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['sage_icp_tpu'] = None\n"
+        "sys.argv = ['cli', '--help']\n"
+        "runpy.run_module('sage_icp_tpu_torch.runtime.cli', run_name='__main__')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+    assert "--device" in out.stdout and "--deskew" in out.stdout and "--platform" not in out.stdout
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PACKAGE.rglob("*.py"))
@@ -52,7 +74,7 @@ def test_sage_icp_without_device_needs_a_card(monkeypatch):
     assert SageICP("city", device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("setting", ["deskew", "dense_grid", "quantized_scan_upload"])
+@pytest.mark.parametrize("setting", ["dense_grid"])
 def test_unported_settings_are_refused(setting):
     from sage_icp_tpu_torch.models.pipeline import PRESETS, SageICP
 
@@ -72,7 +94,7 @@ def test_kitti_preset_runs_its_dynamic_filter():
     assert odom.config.dynamic_vehicle_filter
     buf, valid = parked_moving_scan(odom.config.scan_capacity)
     pts, ok = torch.from_numpy(buf), torch.from_numpy(valid)
-    prep = tpl.prepare_icp_inputs(odom.state, pts, ok, odom.config)
+    prep = tpl.prepare_icp_inputs(odom.state, pts, ok, torch.zeros(len(pts)), odom.config)
     assert int(prep["dyn_overflow"]) == 0
     frame = prep["frame_ds"][prep["frame_valid"]]
     car = frame[frame[:, 3] == 10.0]
