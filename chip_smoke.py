@@ -22,7 +22,9 @@ Phases, each fatal on failure:
      for bit; the bitonic sort bit for bit at N = 2^16 and 2^18 (two
      uint32 keys, an iota key, a float32 payload) against the stable sort
      and the network run stage by stage, and at 2^18 on tied keys (no iota
-     key) against the network, with its launches per call. Kernel, plain
+     key) against the network, with its launches per call; the GN and
+     policy kernels on the two row halves of the kitti shapes that phase
+     10's ranks take, against the call on all rows. Kernel, plain
      and library times are device times (time_ms: calls queued back to
      back behind a spacer kernel, CUDA events, the median of 5 batches of
      20);
@@ -47,7 +49,8 @@ Phases, each fatal on failure:
   8. with --profile only: each path's host phases, device busy share and
      kernels (torch.profiler) on five further frames, the port's own
      kernels listed apart; the deskew path's too (after phase 9), and
-     the deskew's share of its device busy time;
+     the deskew's share of its device busy time; and phase 10a's NCCL
+     path's (its ICP and insert through the mesh);
   9. the runtime (run after phase 7): the CLI in process, `--synthetic
      --preset kitti --deskew --frames 40 --chunk 8`, chunked and with
      --timed-icp (per-frame), each with ATE < 0.05 m, 40 lines in
@@ -62,7 +65,22 @@ Phases, each fatal on failure:
      within 1e-5 of per-frame, both timed; one frame's deskew on the card
      against the CPU within 1e-5 m, and its time at 135,168 points; a
      checkpoint resume after 20 frames equal to the uninterrupted run
-     (trajectory within 1e-5 m, the map slot for slot).
+     (trajectory within 1e-5 m, the map slot for slot);
+ 10. multi-rank (parallel/): (a) NCCL at world size 1 in process,
+     init_distributed through a file:// rendezvous under build/, then
+     ShardedSageICP() (the kitti preset) on phase 6's 40 scans with phase
+     6's calls: its trajectory equal to phase 6's bit for bit, no drop, GN
+     launched once per ICP iteration, the policy and the radius count once
+     a frame; (b) two parallel.worker processes sharing the card over gloo
+     (NCCL refuses two ranks on one device), each at the full kitti preset
+     on the same 40 scans: the two trajectories equal bit for bit and the
+     final maps slot for slot, each within 5e-3 m of phase 6's trajectory
+     (test_sharded_maneuver_equivalence's bound), ATE < 0.05 m, no drop,
+     and per rank GN once per ICP iteration on 9,216 of the 18,432 rows,
+     the policy once a frame on 16,512 of the 33,024 rows, the radius count
+     once a frame (replicated). Each rank's ms/frame is printed: two ranks
+     share one card, so it is not a scaling figure. 10a also prints the
+     host time of one GN-sum exchange and of one insert gather over NCCL.
 The line before the device line is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits non-zero and prints no result.
@@ -96,6 +114,8 @@ PORT_KERNELS = ("semantic_nn_kernel", "gn_iteration_kernel", "retention_policy_k
                 "bitonic_tile_kernel", "bitonic_global_kernel")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DRIVE_ROWS = os.path.join(ROOT, "build", "drive_rows.pt")
+MULTI_RANK_DIR = os.path.join(ROOT, "build", "multi_rank")
+TWO_RANKS_TIMEOUT_S = 600
 CLI_OUT = os.path.join(ROOT, "build", "cli_smoke")
 CLI_FRAMES = 40
 WARMUP, FRAMES = 10, 30  # each path: warm-up and timed frames
@@ -314,6 +334,54 @@ def check_policy(rng, dev, shape):
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+def check_shards(dev) -> None:
+    """Phase 3, the two row-sharded kernels at kitti shapes split in two
+    as phase 10's ranks run them (seeded rows of their own): GN on each
+    half's rows (views, the tile map recomputed per half), the two sums
+    added in rank order, against the call on all rows within GN_SUM_RTOL
+    of the terms' magnitudes, the used count equal; the policy on each
+    half, concatenated, against the call on all rows bit for bit. Prints
+    each half's kernel time (time_ms)."""
+    from sage_icp_tpu_torch.ops import nn_kernels, policy_kernel
+
+    rng = np.random.default_rng(2)
+    d = row_inputs(rng, dev, KITTI)
+    v = KITTI["voxel"]
+    consts = (GN_CONST["sem_th"], v / 32767.0, v, GN_CONST["max_corr"], GN_CONST["kth"])
+
+    def gn_call(lo, hi):
+        used = d["used"][lo:hi]
+        args = (*[p[lo:hi] for p in d["planes"]], *d["offs"], d["q0"][lo:hi], d["origin"][lo:hi],
+                d["row_abs"][lo:hi], used, d["T"], *consts)
+        tile_map = nn_kernels.default_tile_map(used)
+        return args, tile_map, lambda: nn_kernels.fused_gn_iteration(*args, tile_map=tile_map)
+
+    R = KITTI["R"]
+    args, tile_map, full = gn_call(0, R)
+    halves = [gn_call(0, R // 2), gn_call(R // 2, R)]
+    parts = [h[2]() for h in halves]
+    total = parts[0] + parts[1]  # rank order, as ops/registration.py adds them
+    want = full()
+    tol = GN_SUM_RTOL * nn_kernels.gn_terms(*args, tile_map).abs().sum(dim=1)
+    diff = (total - want).abs()
+    if not bool(torch.all(diff <= tol)) or float(total[17]) != float(want[17]):
+        fail(f"fused_gn_iteration on two row halves disagrees with all rows: {diff.tolist()} vs {tol.tolist()}")
+    gn_ms = [time_ms(h[2]) for h in halves]
+
+    pargs, _ = policy_inputs(rng, dev, KITTI)
+    U = pargs[0].shape[0]
+    want = policy_kernel.apply_policy(*pargs, basic=20)
+    shards = [[a[lo:hi] for a in pargs] for lo, hi in ((0, U // 2), (U // 2, U))]
+    got = [policy_kernel.apply_policy(*a, basic=20) for a in shards]
+    if not all(torch.equal(torch.cat([g0, g1]), w) for g0, g1, w in zip(*got, want)):
+        fail("apply_policy on two row halves differs from the call on all rows")
+    pol_ms = [time_ms(lambda a=a: policy_kernel.apply_policy(*a, basic=20)) for a in shards]
+    print(f"row halves at kitti shapes (phase 10's two ranks): fused_gn_iteration on {R // 2} + {R - R // 2} rows "
+          f"{gn_ms[0]:.4f} + {gn_ms[1]:.4f} ms, their sums in rank order against all rows max |diff| "
+          f"{float(diff.max())} (within tolerance); apply_policy on {U // 2} + {U - U // 2} rows {pol_ms[0]:.4f} + "
+          f"{pol_ms[1]:.4f} ms, equal to all rows bit for bit", flush=True)
+
+
 def print_row(name, r) -> None:
     lib = "" if r["library_ms"] is None else f" library {r['library_ms']:.4f} ms"
     print(f"kernel {name}: max_abs_err {r['max_abs_err']} kernel {r['ms']:.4f} ms "
@@ -354,6 +422,7 @@ def check_kernels(dev):
     krng = np.random.default_rng(1)
     print_row("fused_gn_iteration at kitti shapes", check_gn(row_inputs(krng, dev, KITTI), KITTI, dev))
     print_row("apply_policy at kitti shapes", check_policy(krng, dev, KITTI))
+    check_shards(dev)
 
     R, P, M, r2 = (KITTI_FILTER[k] for k in ("VR", "P", "M", "r2"))
     rargs = radius_inputs(rng, dev) + [r2]
@@ -479,12 +548,28 @@ def expect_launches(name, launches, gn, frames, prepares) -> None:
             fail(f"{name}: {kernel} launched {launches[kernel]} times, expected {count}")
 
 
+def register(odom, scans, warmup: int, n: int):
+    """The drives' calls: register_frame on scans[:warmup], then timed on
+    scans[warmup:n]. Returns (seconds of the timed frames, the launches
+    counted from the first frame on)."""
+    from sage_icp_tpu_torch.ops import cuda_lib
+
+    cuda_lib.reset_launches()
+    for i in range(warmup):
+        odom.register_frame(scans[i])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(warmup, n):
+        odom.register_frame(scans[i])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, dict(cuda_lib.LAUNCHES)
+
+
 def drive(name: str, odom, density: float, warmup: int, frames: int, extra: int):
     """Phases 4 and 6: `odom` over the city world at `density` along
     make_trajectory, scans from render_scan at n_target 120000. Returns
-    (scans, launches); `extra` more scans along the trajectory follow the
-    path's."""
-    from sage_icp_tpu_torch.ops import cuda_lib
+    (scans, launches, gt); `extra` more scans along the trajectory follow
+    the path's."""
     from sage_icp_tpu_torch.utils import synthetic
 
     pts, labs = synthetic.build_city_world(seed=0, size=420.0, density=density)
@@ -497,16 +582,7 @@ def drive(name: str, odom, density: float, warmup: int, frames: int, extra: int)
                                    max_range=min(100.0, odom.config.max_range)) for i in range(n + extra)]
     if max(len(s) for s in scans) > odom.config.scan_capacity:
         fail("scan capacity overflow")
-    cuda_lib.reset_launches()
-    for i in range(warmup):
-        odom.register_frame(scans[i])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(warmup, n):
-        odom.register_frame(scans[i])
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = dict(cuda_lib.LAUNCHES)
+    elapsed, launches = register(odom, scans, warmup, n)
 
     totals = odom.aux_totals()
     if int(totals.overflow_total()) != 0:
@@ -522,7 +598,7 @@ def drive(name: str, odom, density: float, warmup: int, frames: int, extra: int)
           f"{1e3 * elapsed / frames:.3f} ms/frame; ICP iterations {odom.icp_iters}; "
           f"ATE {ate:.5f} m; live voxels {int((odom.state.map.counts > 0).sum())}; "
           f"launches {launches}", flush=True)
-    return scans, launches
+    return scans, launches, gt[:n]
 
 
 def single_pass(odom, scan):
@@ -721,14 +797,15 @@ def profile(name, odom, scans, tss=None) -> float:
         prep = pl.prepare_icp_inputs(state, pts, valid, ts, cfg)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        icp = pl.run_icp(state.map, prep, cfg)
+        icp = pl.run_icp(state.map, prep, cfg, odom.mesh)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         world = geo.transform_points(icp.pose, prep["frame_ds"])
         new_map, _ = hm.insert(state.map, world, prep["frame_valid"], cfg.voxel_size_map,
                                cfg.basic_points_per_voxel, pl.basic_label_mask(cfg, dev),
                                cfg.max_incoming_per_voxel, cfg.probe_depth,
-                               min(cfg.insert_unique_capacity, cfg.frame_capacity), prep["tables"])
+                               min(cfg.insert_unique_capacity, cfg.frame_capacity), prep["tables"],
+                               mesh=odom.mesh)
         hm.remove_far(new_map, icp.pose[:3, 3], cfg.local_map_range)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
@@ -929,6 +1006,143 @@ def runtime_phase(kitti_scans, dev):
     return odom, scans, tss, deskew_kernel_ms
 
 
+def host_ms(fn, reps: int = 50) -> float:
+    """Host time of one call in ms, the mean of `reps` after 5 warm-up
+    calls, the card synchronised before and after."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def collective_ms(mesh, dev, policy_rows: int, kmax: int) -> dict:
+    """The sharded step's two exchanges on `mesh`, host ms a call: the GN
+    sums' (the (1, 18) gather and its fetch, against the single-device
+    fetch of the (18,) sums) and the insert's (the gather of `policy_rows`
+    packed rows of 8 K + 4 bytes)."""
+    sums = torch.zeros(18, device=dev)
+    packed = torch.zeros((policy_rows, 8 * kmax + 4), dtype=torch.uint8, device=dev)
+    return dict(gn_exchange=host_ms(lambda: mesh.all_gather(sums[None]).cpu()), gn_fetch=host_ms(lambda: sums.cpu()),
+                insert_gather=host_ms(lambda: mesh.all_gather(packed)))
+
+
+def nccl_world_of_one(scans, traj, dev, profile_scans=None) -> None:
+    """Phase 10a: NCCL at world size 1, in process; ShardedSageICP() on
+    the kitti drive's scans with phase 6's calls, equal to phase 6 bit for
+    bit. With profile_scans (--profile), phase 8's breakdown of this path
+    on them."""
+    import torch.distributed as dist
+
+    from sage_icp_tpu_torch.models.pipeline import PRESETS
+    from sage_icp_tpu_torch.parallel.distributed import init_distributed
+    from sage_icp_tpu_torch.parallel.sharding import ShardedSageICP
+
+    rendezvous = os.path.join(MULTI_RANK_DIR, "rendezvous_nccl")
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)
+    mesh = init_distributed(f"file://{rendezvous}", 1, 0, backend="nccl", device=dev)
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"phase 10a: the process group's backend is {dist.get_backend()}, not nccl")
+        odom = ShardedSageICP()  # the kitti preset on make_mesh(): the group just joined
+        if odom.mesh.group is None or odom.mesh.size != 1 or odom.config != PRESETS["kitti"]:
+            fail(f"ShardedSageICP() at world size 1: mesh {odom.mesh}, config padded away from the kitti preset")
+        elapsed, launches = register(odom, scans, WARMUP, len(scans))
+        cfg = odom.config
+        coll = collective_ms(odom.mesh, odom.device, min(cfg.insert_unique_capacity, cfg.frame_capacity),
+                             cfg.points_per_voxel)
+        got, iters, totals = odom.trajectory(), list(odom.icp_iters), odom.aux_totals()
+        if profile_scans:
+            profile("kitti NCCL world of one", odom, profile_scans)
+    finally:
+        dist.destroy_process_group()
+    if not np.array_equal(got, traj):
+        fail(f"NCCL world of one differs from phase 6's trajectory: max |diff| {np.abs(got - traj).max()}")
+    if int(totals.overflow_total()) != 0:
+        fail(f"NCCL world of one: silent-drop counters over all frames: {totals}")
+    expect_launches("NCCL world of one", launches, sum(iters), len(scans), len(scans))
+    frames = len(scans) - WARMUP
+    print(f"NCCL world of one (ShardedSageICP(), kitti preset): trajectory equal to phase 6's bit for bit; "
+          f"{1e3 * elapsed / frames:.3f} ms/frame over {frames} timed frames; ICP iterations "
+          f"{sum(iters)}; launches {launches}", flush=True)
+    print(f"NCCL world of one, host ms a call: GN sums gathered and fetched {coll['gn_exchange']:.4f} "
+          f"(fetched alone {coll['gn_fetch']:.4f}); the insert's gather {coll['insert_gather']:.4f}", flush=True)
+
+
+def two_ranks_one_card(scans, traj, gt, dev) -> None:
+    """Phase 10b: two parallel.worker processes on the card over gloo, at
+    the full kitti preset, on the kitti drive's scans."""
+    from sage_icp_tpu_torch.models.pipeline import PRESETS
+    from sage_icp_tpu_torch.parallel.worker import save_scans
+
+    out = os.path.join(MULTI_RANK_DIR, "two_ranks")
+    os.makedirs(out, exist_ok=True)
+    rendezvous = os.path.join(MULTI_RANK_DIR, "rendezvous_gloo")
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)
+    save_scans(os.path.join(out, "scans.npy"), scans)
+    cmds = [[sys.executable, "-m", "sage_icp_tpu_torch.parallel.worker", "--rank", str(r), "--world", "2",
+             "--init", f"file://{rendezvous}", "--backend", "gloo", "--device", f"cuda:{dev.index or 0}",
+             "--preset", "kitti", "--scans", os.path.join(out, "scans.npy"), "--out", out] for r in range(2)]
+    procs = [subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    try:
+        logs = [p.communicate(timeout=TWO_RANKS_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"rank {r} of the two-rank run exited {p.returncode}:\n{log[-4000:]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank_{r}.json")) as f:
+            ranks.append(dict(report=json.load(f), poses=np.load(os.path.join(out, f"poses_{r}.npy")),
+                              map=dict(np.load(os.path.join(out, f"map_{r}.npz")))))
+    r0, r1 = ranks
+    if not np.array_equal(r0["poses"], r1["poses"]):
+        fail(f"the two ranks' trajectories differ: max |diff| {np.abs(r0['poses'] - r1['poses']).max()}")
+    if not all(np.array_equal(r0["map"][k], r1["map"][k]) for k in r0["map"]):
+        fail("the two ranks' final maps differ")
+    gap = float(np.linalg.norm(r0["poses"][:, :3, 3] - traj[:, :3, 3], axis=-1).max())
+    ate = ate_of(r0["poses"], gt)
+    if not gap < 5e-3:
+        fail(f"two ranks: {gap} m from phase 6's single-device trajectory (bound 5e-3 m)")
+    if not ate < 0.05:
+        fail(f"two ranks: ATE {ate} m")
+    cfg = PRESETS["kitti"]
+    gn_rows = (cfg.corr_unique_voxel_rows + cfg.corr_overflow_rows) // 2
+    policy_rows = min(cfg.insert_unique_capacity, cfg.frame_capacity) // 2
+    n = len(scans)
+    for r, rank in enumerate(ranks):
+        rep = rank["report"]
+        if rep["overflow_total"] != 0:
+            fail(f"rank {r}: silent-drop counters over all frames: {rep['aux_totals']}")
+        iters = sum(rep["icp_iterations"])
+        expect_launches(f"rank {r} of two", rep["launches"], iters, n, n)
+        want_rows = {"fused_gn_iteration": {str(gn_rows): iters}, "apply_policy": {str(policy_rows): n}}
+        if rep["kernel_rows"] != want_rows:
+            fail(f"rank {r}: kernel rows {rep['kernel_rows']}, expected {want_rows}")
+        print(f"two ranks sharing one card (gloo), rank {r}: {rep['ms_per_frame']:.3f} ms/frame after the first "
+              f"frame -- two ranks sharing one card: not a scaling figure; ICP iterations {iters}, launches "
+              f"{rep['launches']}, kernel rows {rep['kernel_rows']}", flush=True)
+    print(f"two ranks on one card: trajectories equal bit for bit, final maps equal slot for slot; "
+          f"{gap:.3e} m from phase 6's trajectory at most; ATE {ate:.5f} m; GN on {gn_rows} rows and the policy "
+          f"on {policy_rows} rows per rank", flush=True)
+
+
+def multi_rank_phase(scans, traj, gt, dev, profile_scans=None) -> None:
+    """Phase 10: the kitti drive's scans through the parallel layer."""
+    os.makedirs(MULTI_RANK_DIR, exist_ok=True)
+    nccl_world_of_one(scans, traj, dev, profile_scans)
+    two_ranks_one_card(scans, traj, gt, dev)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true", help="stop after phase 3")
@@ -971,14 +1185,16 @@ def main() -> int:
     n = WARMUP + FRAMES
     extra = 5 if args.profile else 0
     city = SageICP("city")
-    city_scans, _ = drive("city", city, 0.7, WARMUP, FRAMES, extra)
+    city_scans, _, _ = drive("city", city, 0.7, WARMUP, FRAMES, extra)
     nn_launches = single_pass(city, city_scans[n - 1])
     kitti = SageICP()  # the default preset
     if kitti.config != PRESETS["kitti"] or not kitti.config.dynamic_vehicle_filter:
         fail("SageICP() is not the kitti preset with its dynamic filter")
-    kitti_scans, launches = drive("kitti", kitti, 1.3, WARMUP, FRAMES, extra)
+    kitti_scans, launches, kitti_gt = drive("kitti", kitti, 1.3, WARMUP, FRAMES, extra)
+    kitti_traj = kitti.trajectory()
     sort_launches = kitti_checks(kitti, kitti_scans[n - 1])
     deskew_odom, skewed, tss, deskew_kernel_ms = runtime_phase(kitti_scans, dev)
+    multi_rank_phase(kitti_scans[:n], kitti_traj, kitti_gt, dev, kitti_scans[n:] if args.profile else None)
     if args.profile:
         profile("city", city, city_scans[n:])
         profile("kitti", kitti, kitti_scans[n:])

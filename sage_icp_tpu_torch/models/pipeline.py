@@ -274,8 +274,9 @@ def prepare_icp_inputs(state: OdomState, points, valid, timestamps, config: Sage
                 dyn_overflow=dyn_overflow)
 
 
-def run_icp(map_state, prep: dict, config: SageConfig) -> reg.IcpResult:
-    """max_corr_dist = 3 sigma, robust kernel = sigma / 3."""
+def run_icp(map_state, prep: dict, config: SageConfig, mesh=None) -> reg.IcpResult:
+    """max_corr_dist = 3 sigma, robust kernel = sigma / 3. With a mesh
+    (parallel.sharding.Mesh) the GN rows are split across its ranks."""
     fast_params = dict(
         unique_voxel_rows=config.corr_unique_voxel_rows,
         queries_per_voxel=config.corr_queries_per_voxel,
@@ -285,7 +286,7 @@ def run_icp(map_state, prep: dict, config: SageConfig) -> reg.IcpResult:
     return reg.register_frame(
         map_state, prep["source"], prep["source_valid"], prep["initial_guess"], config.voxel_size_map,
         3.0 * sigma, sigma / 3.0, config.sem_th, max_iterations=config.max_icp_iterations,
-        probe_depth=config.probe_depth, fast_params=fast_params, tables=prep["tables"],
+        probe_depth=config.probe_depth, fast_params=fast_params, tables=prep["tables"], mesh=mesh,
     )
 
 
@@ -302,12 +303,17 @@ def check_supported(config: SageConfig) -> None:
         raise NotImplementedError("not ported: dense_grid")
 
 
-def odometry_step(state: OdomState, points, valid, timestamps, config: SageConfig):
+def odometry_step(state: OdomState, points, valid, timestamps, config: SageConfig, mesh=None,
+                  shard_insert: bool = True):
     """One odometry step. points (scan_capacity, 4) sensor-frame
     xyz+label; valid (scan_capacity,); timestamps (scan_capacity,) in
     [0, 1], read only with config.deskew. Returns (new_state, pose (4, 4),
     aux). The ICP loop waits for the device at its start and once per
-    iteration (ops/registration.py)."""
+    iteration (ops/registration.py).
+
+    mesh (parallel.sharding.Mesh): every rank steps the whole scan; the
+    GN rows and, with shard_insert, the insert's policy rows are split
+    across the ranks (parallel/sharding.py)."""
     check_supported(config)
     dev = points.device
     prep = prepare_icp_inputs(state, points, valid, timestamps, config)
@@ -315,7 +321,7 @@ def odometry_step(state: OdomState, points, valid, timestamps, config: SageConfi
     frame_ds, frame_valid = prep["frame_ds"], prep["frame_valid"]
     initial_guess = prep["initial_guess"]
 
-    icp = run_icp(state.map, prep, config)
+    icp = run_icp(state.map, prep, config, mesh)
     # solve-health guard: a non-finite or non-orthonormal pose, or a
     # finite solve that matched almost nothing, coasts on the motion
     # model and skips this frame's insert; after reject_streak_limit
@@ -338,7 +344,7 @@ def odometry_step(state: OdomState, points, valid, timestamps, config: SageConfi
         config.voxel_size_map, config.basic_points_per_voxel, basic_label_mask(config, dev),
         max_incoming_per_voxel=config.max_incoming_per_voxel, probe_depth=config.probe_depth,
         unique_voxel_capacity=min(config.insert_unique_capacity, config.frame_capacity),
-        tables=prep["tables"],
+        tables=prep["tables"], mesh=mesh if shard_insert else None,
     )
     new_map = hm.remove_far(new_map, new_pose[:3, 3], config.local_map_range)
 
@@ -419,16 +425,17 @@ def _fold_aux(totals: StepAux | None, aux: StepAux) -> StepAux:
     ])
 
 
-def chunk_step(state: OdomState, scans: torch.Tensor, config: SageConfig):
+def chunk_step(state: OdomState, scans: torch.Tensor, config: SageConfig, mesh=None):
     """Offline mode: (state, scans (W, cap, 4|5) on the device) -> (state',
     poses (W, 4, 4) on the device, per-frame ICP iterations (list of W
     ints), aux aggregated over the chunk: drop counters summed, occupancy
     maxed, sigma/iterations/correspondences of the last frame). The W
-    steps are the single-frame steps in order, on one upload."""
+    steps are the single-frame steps in order, on one upload (sharded
+    on `mesh` when given)."""
     poses, iters, agg = [], [], None
     for pts in scans:
         p, valid, ts = _split_packed(pts)
-        state, pose, aux = odometry_step(state, p, valid, ts, config)
+        state, pose, aux = odometry_step(state, p, valid, ts, config, mesh)
         poses.append(pose)
         iters.append(int(aux.icp_iterations))
         agg = _fold_aux(agg, aux)
@@ -455,6 +462,7 @@ class SageICP:
         check_supported(config)
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = None  # parallel.sharding.ShardedSageICP sets its mesh
         geo.pin_full_fp32()
         self.reinitialize()
 
@@ -506,7 +514,7 @@ class SageICP:
         buf = self.pad_chunk([points], None if timestamps is None else [timestamps])[0]
         t0 = time.perf_counter()
         pts, valid, ts = _split_packed(torch.from_numpy(buf).to(self.device))
-        self.state, pose, aux = odometry_step(self.state, pts, valid, ts, self.config)
+        self.state, pose, aux = odometry_step(self.state, pts, valid, ts, self.config, self.mesh)
         self._record(aux, [int(aux.icp_iterations)])
         if block:
             pose = pose.cpu().numpy()
@@ -522,7 +530,7 @@ class SageICP:
         if isinstance(scans, list):
             scans = self.pad_chunk(scans, timestamps)
         dev_scans = torch.as_tensor(scans).to(self.device)
-        self.state, poses, iters, aux = chunk_step(self.state, dev_scans, self.config)
+        self.state, poses, iters, aux = chunk_step(self.state, dev_scans, self.config, self.mesh)
         self._record(aux, iters)
         self.poses.append(poses)
         return poses

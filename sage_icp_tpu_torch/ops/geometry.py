@@ -162,6 +162,10 @@ def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     return _rt_to_mat(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])
 
 
+def se3_identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.eye(4, dtype=dtype, device=device)
+
+
 def renormalize(T: torch.Tensor) -> torch.Tensor:
     """Project the rotation block back onto SO(3) with one Newton-Schulz
     polar step, R <- R (3I - R^T R) / 2. Runs on every carried pose: a

@@ -102,6 +102,12 @@ def quantize_points(points: torch.Tensor, vkeys: torch.Tensor, voxel_size) -> to
     return torch.cat([q, points[..., 3:4].to(torch.int16)], dim=-1)
 
 
+def dequantize_points(stored: torch.Tensor, vkeys: torch.Tensor, voxel_size, dtype=torch.float32):
+    """Inverse of quantize_points: (…, 4) int16 -> (…, 4) f32 world."""
+    xyz = stored[..., :3].to(dtype) * (voxel_size / QSCALE) + vkeys.to(dtype) * voxel_size
+    return torch.cat([xyz, stored[..., 3:4].to(dtype)], dim=-1)
+
+
 def dequantize_blocks(stored: torch.Tensor, vkeys: torch.Tensor, voxel_size, dtype=torch.float32):
     """(…, 4, K) int16 planes -> (…, K, 4) f32 world points."""
     xyz = stored[..., :3, :].to(dtype) * (voxel_size / QSCALE) + vkeys[..., :, None].to(dtype) * voxel_size
@@ -173,13 +179,21 @@ def insert(
     probe_depth: int = DEFAULT_PROBE_DEPTH,
     unique_voxel_capacity: int | None = None,
     tables=None,
+    mesh=None,
 ):
     """AddPoints with the reference's per-block retention policy.
 
     points (N, 4) world xyz+label; valid (N,); basic_label_mask (L,) bool,
     True for the basic-class labels. tables: the frame's ProbeTables
     (correspondence_fast), else the map is probed with `lookup`.
-    Returns (new MapState, InsertStats). Never synchronises the host."""
+    Returns (new MapState, InsertStats). Never synchronises the host.
+
+    mesh (parallel.sharding.Mesh): the policy phase (the block and
+    incoming gathers and the policy kernel) runs on this rank's U/n
+    compact rows, and the updated rows are all-gathered for the
+    write-back, which runs replicated. Rows are independent, so the
+    result is exactly the single-device insert. U must be a multiple of
+    128 * n (parallel.sharding.pad_config_for_mesh)."""
     cap = state.capacity
     kmax = state.points_per_voxel
     n = points.shape[0]
@@ -250,9 +264,15 @@ def insert(
     # --- retention policy on the compact (U, 4, K) buffer of touched blocks
     num_labels = basic_label_mask.shape[0]
     Rmax = max_incoming_per_voxel
-    slot_c = torch.where(has_slot, slot_u, 0).long()
+    lo, hi = 0, U
+    if mesh is not None:
+        if U % (128 * mesh.size):
+            raise ValueError(f"insert_unique_capacity {U} must divide into 128-row tiles across {mesh.size} "
+                             "ranks (parallel.sharding.pad_config_for_mesh)")
+        lo, hi = mesh.row_range(U)
+    slot_c = torch.where(has_slot, slot_u, 0)[lo:hi].long()
     points2 = state.points.reshape(cap, 4 * kmax)
-    compact = points2[slot_c].reshape(U, 4, kmax)
+    compact = points2[slot_c].reshape(hi - lo, 4, kmax)
     ccounts = new_counts[slot_c]
     lab_s = torch.clamp(pts_sorted[:, 3].to(torch.int32), 0, num_labels - 1)
     cls_s = torch.where(lab_s == 0, 0, torch.where(basic_label_mask[lab_s.long()], 1, 2))
@@ -260,8 +280,8 @@ def insert(
     enc = (lab_s | (cls_s << policy_kernel.CLS_SHIFT)).to(torch.int16)
     # rank r of row u is sorted point head_pos[u] + r (wrapping; ranks at
     # or beyond the row's seglen are never read)
-    win = (hp_c[:, None] + torch.arange(Rmax, device=dev)[None, :]) % n
-    seglen = torch.where(has_slot, torch.clamp(seg_len, max=Rmax), 0)[:, None].contiguous()
+    win = (hp_c[lo:hi, None] + torch.arange(Rmax, device=dev)[None, :]) % n
+    seglen = torch.where(has_slot, torch.clamp(seg_len, max=Rmax), 0)[lo:hi, None].contiguous()
     bx, by, bz, bl, cnt2 = policy_kernel.apply_policy(
         compact[:, 0].contiguous(), compact[:, 1].contiguous(),
         compact[:, 2].contiguous(), compact[:, 3].contiguous(),
@@ -270,11 +290,25 @@ def insert(
         basic=basic_points,
     )
     compact = torch.stack([bx, by, bz, bl], dim=1)
+    if mesh is not None:
+        compact, cnt2 = _gather_rows(mesh, compact, cnt2)
     out = _insert_writeback(
         state, points2, compact, cnt2[:, 0], has_slot, slot_u, ukeys,
         new_keys, new_counts, voxel_size, cap, kmax, U,
     )
     return out, stats
+
+
+def _gather_rows(mesh, compact: torch.Tensor, counts: torch.Tensor):
+    """All-gather this rank's policy rows, (U/n, 4, K) int16 blocks and
+    (U/n, 1) int32 counts, into (U, 4, K) and (U, 1) in rank order. Both
+    travel as the bytes of one (U/n, 8K + 4) uint8 buffer: one collective,
+    and NCCL has no int16 type."""
+    rows, _, kmax = compact.shape
+    packed = torch.cat([compact.reshape(rows, 4 * kmax).view(torch.uint8), counts.view(torch.uint8)], dim=1)
+    packed = mesh.all_gather(packed)
+    blocks = packed[:, : 8 * kmax].contiguous().view(torch.int16).reshape(-1, 4, kmax)
+    return blocks, packed[:, 8 * kmax :].contiguous().view(torch.int32)
 
 
 def _insert_writeback(state, points2, compact, ccounts, has_slot, slot_u, ukeys,
@@ -307,6 +341,16 @@ def remove_far(state: MapState, origin: torch.Tensor, max_distance) -> MapState:
         keys=torch.where(killn, EMPTY_KEY, state.keys),
         first_pts=torch.where(killn, INVALID_COORD, state.first_pts),
     )
+
+
+def clear(state: MapState) -> MapState:
+    """An empty map of the same capacity, block size, dtype and device."""
+    return create(state.capacity, state.points_per_voxel, state.counts.device, state.first_pts.dtype)
+
+
+def is_empty(state: MapState) -> torch.Tensor:
+    """0-dim bool: no live block."""
+    return ~torch.any(state.counts > 0)
 
 
 def pointcloud(state: MapState, voxel_size):

@@ -14,6 +14,13 @@ fetches them, solves the 6x6 system in float32, composes the increment,
 and decides whether to stop and whether to re-anchor. The JAX reference
 keeps this loop on the device in a lax.while_loop; a device-side loop or
 a CUDA graph that removes the per-iteration sync is queued work.
+
+Across the ranks of a mesh (parallel/sharding.py) each rank runs the GN
+kernel on its contiguous slice of the frozen rows; the (18,) sums come
+back as an (n, 18) buffer and are added in rank order on the host, the
+same on every rank. Every branch of the loop (the exit, the drift, the
+re-anchor) reads those sums, the host pose and the replicated setup, so
+every rank runs the same iterations and the same collectives.
 """
 
 from __future__ import annotations
@@ -100,14 +107,19 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
 def register_frame(map_state: hm.MapState, frame, valid, initial_guess, voxel_size,
                    max_correspondence_distance, kernel, sem_th,
                    max_iterations: int = MAX_ITERATIONS, probe_depth: int = hm.DEFAULT_PROBE_DEPTH,
-                   fast_params: dict | None = None, tables=None) -> IcpResult:
+                   fast_params: dict | None = None, tables=None, mesh=None) -> IcpResult:
     """Frame-to-map ICP. frame (N, 4) sensor frame, valid (N,),
     initial_guess (4, 4). With fast_params (unique_voxel_rows /
     queries_per_voxel / overflow_rows) the frozen-rows engine runs: rows
     are built at an anchor pose, every iteration is one fused GN kernel
     call, and the rows are rebuilt at the current pose once the
     accumulated increment drifts 0.45 voxel. Without, each iteration runs
-    the reference-shaped search."""
+    the reference-shaped search.
+
+    mesh (parallel.sharding.Mesh): the frozen rows are split across its
+    ranks, each summing its share with the GN kernel (module docstring).
+    The reference-shaped branch ignores it: every rank runs the whole
+    search."""
     dev = frame.device
     eye = torch.eye(4, dtype=torch.float32)
     guess = initial_guess.detach().to("cpu", torch.float32)
@@ -152,15 +164,34 @@ def register_frame(map_state: hm.MapState, frame, valid, initial_guess, voxel_si
         return _norm(moved) + torch.arccos(cos_t) * r_scan
 
     def frozen_rows(setup):
+        """This rank's rows [lo, hi) of the setup, as views (a plane's row
+        stride 2M is a multiple of the GN kernel's load width, so a view
+        keeps the plane base aligned), and their tile map."""
         R = setup.q0.shape[0]
-        used = setup.grid_used.to(torch.int32)
+        lo, hi = (0, R) if mesh is None else mesh.row_range(R)
+        used = setup.grid_used[lo:hi].to(torch.int32)
         return dict(
-            q0=setup.q0.reshape(R, -1).contiguous(),
-            origin=setup.row_origin_abs.contiguous(),
-            row_abs=(setup.row_rel + setup.center[None, :]).contiguous(),
+            planes=[p[lo:hi] for p in (setup.cxp, setup.cyp, setup.czp, setup.clp)],
+            q0=setup.q0.reshape(R, -1)[lo:hi].contiguous(),
+            origin=setup.row_origin_abs[lo:hi].contiguous(),
+            row_abs=(setup.row_rel + setup.center[None, :])[lo:hi].contiguous(),
             used=used,
             tile_map=nn_kernels.default_tile_map(used),
         )
+
+    def gn_sums(T):
+        sums = nn_kernels.fused_gn_iteration(
+            *rows["planes"], offx, offy, offz,
+            rows["q0"], rows["origin"], rows["row_abs"], rows["used"], T,
+            sem_th, scale, voxel_size, max_corr, kernel, tile_map=rows["tile_map"],
+        )
+        if mesh is None:
+            return sums.cpu()  # the iteration's one host sync
+        parts = mesh.all_gather(sums[None]).cpu()  # (n, 18); the host sync
+        total = parts[0]
+        for part in parts[1:]:  # rank order, the same on every rank
+            total = total + part
+        return total
 
     anchor, T_icp = guess, eye
     setup = setup_at(anchor)
@@ -173,12 +204,7 @@ def register_frame(map_state: hm.MapState, frame, valid, initial_guess, voxel_si
             anchor, T_icp = T_icp @ anchor, eye
             setup = setup_at(anchor)
             rows = frozen_rows(setup)
-        sums = nn_kernels.fused_gn_iteration(
-            setup.cxp, setup.cyp, setup.czp, setup.clp, offx, offy, offz,
-            rows["q0"], rows["origin"], rows["row_abs"], rows["used"], T_icp,
-            sem_th, scale, voxel_size, max_corr, kernel, tile_map=rows["tile_map"],
-        ).cpu()  # the iteration's one host sync
-        JTJ, JTr, nc, _ = nn_kernels.assemble_normal_equations(sums)
+        JTJ, JTr, nc, _ = nn_kernels.assemble_normal_equations(gn_sums(T_icp))
         x = solve_increment(JTJ, JTr)
         T_icp = geo.se3_exp(x) @ T_icp
         ncorr = int(nc)

@@ -581,3 +581,13 @@ def render_scan(
     if moving_obstacle is not None:
         scan = np.concatenate([scan, moving_obstacle.astype(np.float32)], axis=0)
     return scan
+
+
+def moving_car_points(offset_x: float, rng: np.random.Generator, n: int = 400) -> np.ndarray:
+    """A CAR-labelled box in the sensor frame (a vehicle driving ahead),
+    exercise for the dynamic-vehicle filter."""
+    x = offset_x + rng.uniform(0, 4.0, n)
+    y = rng.uniform(-0.9, 0.9, n)
+    z = rng.uniform(0.2, 1.5, n)
+    lab = np.full(n, CAR, dtype=np.float32)
+    return np.stack([x, y, z, lab], axis=1).astype(np.float32)

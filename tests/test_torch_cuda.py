@@ -21,7 +21,10 @@ poses within 1e-4 of the CPU run; the golden trajectory within
 scan within 0.25 m, deskew on below 0.7x off and 0.10 m, as in
 tests/test_robustness.py; chunked against single frames within 1e-5
 (tests/test_pipeline.py); a resumed run within 1e-5 m of the
-uninterrupted one, its map equal slot for slot.
+uninterrupted one, its map equal slot for slot; the sharded step at
+world size 1 over NCCL equal to SageICP bit for bit, two ranks sharing
+the card over gloo equal to each other bit for bit and within 5e-4 of
+SageICP (tests/test_parallel.py's bound).
 
 The seeded input builders here are shared with tests/test_torch_kernels.py
 and tests/test_torch_dynfilter.py.
@@ -52,6 +55,12 @@ GOLDEN_CONFIG = dict(
     scan_capacity=16384, frame_capacity=16384, source_capacity=8192, map_capacity=65536,
     max_icp_iterations=500, dynamic_vehicle_filter=False, min_range=1.0,
     corr_unique_voxel_rows=8192, corr_overflow_rows=512, insert_unique_capacity=9216,
+)
+# tests/test_parallel.py's tiny_config (this file imports no JAX)
+TINY_CONFIG = dict(
+    scan_capacity=4096, frame_capacity=4096, source_capacity=1024, map_capacity=8192, max_icp_iterations=30,
+    dynamic_vehicle_filter=False, min_range=1.0, corr_unique_voxel_rows=512, corr_overflow_rows=128,
+    insert_unique_capacity=2048, max_incoming_per_voxel=16, probe_depth=8,
 )
 
 
@@ -745,3 +754,87 @@ def test_checkpoint_resume_on_card(card, small_city, tmp_path):
     for k in a:
         if k.startswith("map."):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def tiny_scans():
+    """tests/test_parallel.py's world, trajectory and seed: 3 frames."""
+    pts, labs = synthetic.build_world(seed=1, length=60.0)
+    gt = synthetic.make_trajectory(3, step=0.5)
+    rng = np.random.default_rng(0)
+    return [synthetic.render_scan(pts, labs, gt[i], rng, n_target=3000) for i in range(3)]
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one_equals_sage_icp_on_card(card, tmp_path):
+    import torch.distributed as dist
+
+    from sage_icp_tpu_torch.parallel.distributed import init_distributed
+    from sage_icp_tpu_torch.parallel.sharding import ShardedSageICP
+
+    cfg = tpl.SageConfig(**TINY_CONFIG)
+    single = tpl.SageICP(cfg)
+    mesh = init_distributed(f"file://{tmp_path / 'rendezvous'}", 1, 0, device="cuda:0", timeout_s=120)
+    try:
+        assert dist.get_backend() == "nccl"
+        sharded = ShardedSageICP(cfg, mesh)
+        cuda_lib.reset_launches()
+        for s in tiny_scans():
+            single.register_frame(s)
+            sharded.register_frame(s)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(sharded.trajectory(), single.trajectory())
+    for a, b in zip(sharded.state.map, single.state.map):
+        assert torch.equal(a, b)
+    iters = sum(single.icp_iters) + sum(sharded.icp_iters)
+    assert cuda_lib.LAUNCHES["fused_gn_iteration"] == iters and cuda_lib.LAUNCHES["apply_policy"] == 6
+
+
+@pytest.mark.cuda
+def test_two_ranks_sharing_the_card(card, tmp_path):
+    """Two parallel.worker processes on cuda:0 over gloo (NCCL refuses two
+    ranks on one device), on the tiny config: equal to each other bit for
+    bit, maps slot for slot, within 5e-4 of SageICP on the card
+    (test_sharded_step_matches_single_device's bound), healthy; each rank
+    ran GN on 320 of the 640 rows every ICP iteration and the policy on
+    1,024 of the 2,048 rows every frame, on the card."""
+    import json
+    import subprocess
+    import sys
+
+    from sage_icp_tpu_torch.parallel.worker import save_scans
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    scans = tiny_scans()
+    save_scans(str(tmp_path / "scans.npy"), scans)
+    (tmp_path / "config.json").write_text(json.dumps(TINY_CONFIG))
+    cmds = [[sys.executable, "-m", "sage_icp_tpu_torch.parallel.worker", "--rank", str(r), "--world", "2",
+             "--init", f"file://{tmp_path / 'rendezvous'}", "--backend", "gloo", "--device", "cuda:0",
+             "--preset", "kitti", "--config", str(tmp_path / "config.json"), "--scans", str(tmp_path / "scans.npy"),
+             "--out", str(tmp_path)] for r in range(2)]
+    procs = [subprocess.Popen(c, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+    single = tpl.SageICP(tpl.SageConfig(**TINY_CONFIG))
+    for s in scans:
+        single.register_frame(s)
+    poses = [np.load(tmp_path / f"poses_{r}.npy") for r in range(2)]
+    maps = [dict(np.load(tmp_path / f"map_{r}.npz")) for r in range(2)]
+    np.testing.assert_array_equal(poses[0], poses[1])
+    for k in maps[0]:
+        np.testing.assert_array_equal(maps[0][k], maps[1][k])
+    np.testing.assert_allclose(poses[0], single.trajectory(), atol=5e-4)
+    n = len(scans)
+    for r in range(2):
+        rep = json.loads((tmp_path / f"rank_{r}.json").read_text())
+        iters = sum(rep["icp_iterations"])
+        assert rep["aux_totals"]["nonfinite_pose"] == 0
+        assert rep["kernel_rows"] == {"fused_gn_iteration": {"320": iters}, "apply_policy": {"1024": n}}
+        assert rep["launches"]["fused_gn_iteration"] == iters and rep["launches"]["apply_policy"] == n

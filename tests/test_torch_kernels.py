@@ -106,11 +106,8 @@ def test_retention_policy_exact_sequence():
 
 
 def test_register_frame_matches_jax():
-    world, frame = gn_fixture()
-    n = len(world)
-    mj = jhm.insert(jhm.create(8192, 8), jnp.asarray(world), jnp.ones(n, bool), 1.0, 8, jnp.zeros(260, bool))
-    mt, _ = thm.insert(thm.create(8192, 8), t(world), torch.ones(n, dtype=torch.bool), 1.0, 8,
-                       torch.zeros(260, dtype=torch.bool))
+    mj, mt, frame = gn_fixture_maps()
+    n = len(frame)
     np.testing.assert_array_equal(mt.points.numpy(), np.asarray(mj.points))
     fast = dict(unique_voxel_rows=896, queries_per_voxel=8, overflow_rows=128)
     kw = dict(max_correspondence_distance=1.5, kernel=0.5, sem_th=0.5, max_iterations=60, fast_params=fast)
@@ -120,3 +117,47 @@ def test_register_frame_matches_jax():
     np.testing.assert_allclose(rt.pose.numpy(), np.asarray(rj.pose), atol=1e-4)
     assert abs(rt.iterations - int(rj.iterations)) <= 1
     assert abs(rt.num_correspondences - int(rj.num_correspondences)) <= max(2, rt.num_correspondences // 100)
+
+
+def gn_fixture_maps():
+    world, frame = gn_fixture()
+    n = len(world)
+    mj = jhm.insert(jhm.create(8192, 8), jnp.asarray(world), jnp.ones(n, bool), 1.0, 8, jnp.zeros(260, bool))
+    mt, _ = thm.insert(thm.create(8192, 8), t(world), torch.ones(n, dtype=torch.bool), 1.0, 8,
+                       torch.zeros(260, dtype=torch.bool))
+    return mj, mt, frame
+
+
+def test_register_frame_reference_branch_matches_jax():
+    """fast_params=None, the reference-shaped search every iteration
+    (use_fast_correspondences=False): pose within 1e-6 of the JAX
+    package's, the same iteration and correspondence counts."""
+    mj, mt, frame = gn_fixture_maps()
+    n = len(frame)
+    kw = dict(max_correspondence_distance=1.5, kernel=0.5, sem_th=0.5, max_iterations=60)
+    rj = jreg.register_frame(mj, jnp.asarray(frame), jnp.ones(n, bool), jnp.eye(4, dtype=jnp.float32), 1.0, **kw)
+    rt = treg.register_frame(mt, t(frame), torch.ones(n, dtype=torch.bool), torch.eye(4), 1.0, **kw)
+    np.testing.assert_allclose(rt.pose.numpy(), np.asarray(rj.pose), atol=1e-6)
+    assert rt.iterations == int(rj.iterations) > 1
+    assert rt.num_correspondences == int(rj.num_correspondences) > 0
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_register_frame_empty_map_returns_initial_guess(fast):
+    """The analog of test_icp_empty_map_returns_initial_guess, in both
+    branches: one zero step, then the guess comes back, as in the JAX
+    package."""
+    rng = np.random.default_rng(0)
+    frame = rng.normal(size=(64, 4)).astype(np.float32)
+    xi = np.array([1.0, 2.0, 0.5, 0.1, 0.2, 0.3], np.float32)
+    guess = np.asarray(jgeo.se3_exp(jnp.asarray(xi)))
+    fast_params = dict(unique_voxel_rows=128, queries_per_voxel=2, overflow_rows=32) if fast else None
+    args = (1.0, 1.5, 0.5, 1.0)
+    rj = jreg.register_frame(jhm.create(256, 4), jnp.asarray(frame), jnp.ones(64, bool), jnp.asarray(guess), *args,
+                             fast_params=fast_params)
+    rt = treg.register_frame(thm.create(256, 4), t(frame), torch.ones(64, dtype=torch.bool), t(guess), *args,
+                             fast_params=fast_params)
+    np.testing.assert_allclose(rt.pose.numpy(), guess, atol=1e-5)
+    np.testing.assert_allclose(rt.pose.numpy(), np.asarray(rj.pose), atol=1e-6)
+    assert rt.iterations == int(rj.iterations) == 1
+    assert rt.num_correspondences == int(rj.num_correspondences) == 0

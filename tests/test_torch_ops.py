@@ -222,3 +222,73 @@ def test_synthetic_copy_matches_jax():
     sj = jsyn.render_scan(pts, labs, gt_j[3], np.random.default_rng(3), n_target=5000)
     st = tsyn.render_scan(pts, labs, gt_t[3], np.random.default_rng(3), n_target=5000)
     np.testing.assert_array_equal(sj, st)
+
+
+def test_map_helpers_match_jax():
+    """clear, is_empty and dequantize_points, bit for bit."""
+    rng = np.random.default_rng(5)
+    pts = random_scan(rng, 300)
+    mj = jhm.insert(jhm.create(512, K), jnp.asarray(pts), jnp.ones(300, bool), VOXEL, BASIC,
+                    jnp.asarray(mask_np()), policy_kernel=False)
+    mt, _ = thm.insert(thm.create(512, K), t(pts), torch.ones(300, dtype=torch.bool), VOXEL, BASIC, t(mask_np()))
+    assert bool(jhm.is_empty(mj)) is bool(thm.is_empty(mt)) is False
+    cj, ct = jhm.clear(mj), thm.clear(mt)
+    assert_maps_equal(cj, ct)
+    assert_maps_equal(jhm.create(512, K), ct)
+    assert bool(jhm.is_empty(cj)) is bool(thm.is_empty(ct)) is True
+    assert ct.first_pts.dtype == mt.first_pts.dtype and ct.points.shape == mt.points.shape
+    stored = rng.integers(-32767, 32768, (64, 5, 4)).astype(np.int16)
+    stored[..., 3] = rng.choice([0, 40, 259], (64, 5))
+    vkeys = rng.integers(-500, 500, (64, 5, 3)).astype(np.int32)
+    for voxel in (1.0, 0.8):
+        eq(jhm.dequantize_points(jnp.asarray(stored), jnp.asarray(vkeys), voxel),
+           thm.dequantize_points(t(stored), t(vkeys), voxel))
+    world = tsyn.render_scan(*tsyn.build_world(seed=1, length=40.0), tsyn.make_trajectory(1)[0],
+                             np.random.default_rng(0), n_target=2000)
+    keys = tscan.trunc_div(t(world[:, :3]), 0.8)
+    q = thm.quantize_points(t(world), keys, 0.8)
+    back = thm.dequantize_points(q, keys, 0.8)
+    np.testing.assert_allclose(back.numpy(), world, atol=0.8 / 32767.0)
+
+
+def test_se3_identity_and_moving_car_points_match_jax():
+    eq(jgeo.se3_identity(), tgeo.se3_identity())
+    assert tgeo.se3_identity(torch.float64).dtype == torch.float64
+    for seed, offset in ((0, 8.0), (3, -12.5)):
+        np.testing.assert_array_equal(jsyn.moving_car_points(offset, np.random.default_rng(seed)),
+                                      tsyn.moving_car_points(offset, np.random.default_rng(seed)))
+    np.testing.assert_array_equal(jsyn.moving_car_points(5.0, np.random.default_rng(1), n=37),
+                                  tsyn.moving_car_points(5.0, np.random.default_rng(1), n=37))
+
+
+def test_slot_reuse_after_cull():
+    """The analog of tests/test_hashmap.py's test: a map culled to empty
+    takes the same points again, every voxel back exactly once, slot for
+    slot as the JAX package's."""
+    rng = np.random.default_rng(0)
+    pts = random_scan(rng, 120, spread=10.0)
+    ins_j = lambda m: jhm.insert(m, jnp.asarray(pts), jnp.ones(120, bool), VOXEL, BASIC, jnp.asarray(mask_np()),
+                                 policy_kernel=False)
+    ins_t = lambda m: thm.insert(m, t(pts), torch.ones(120, dtype=torch.bool), VOXEL, BASIC, t(mask_np()))[0]
+    mj, mt = ins_j(jhm.create(256, K)), ins_t(thm.create(256, K))
+    assert_maps_equal(mj, mt)
+    mj, mt = jhm.remove_far(mj, jnp.zeros(3), 0.01), thm.remove_far(mt, torch.zeros(3), 0.01)
+    assert_maps_equal(mj, mt)
+    assert bool(jhm.is_empty(mj)) and bool(thm.is_empty(mt))
+    mj, mt = ins_j(mj), ins_t(mt)
+    assert_maps_equal(mj, mt)
+    live = mt.keys[mt.counts > 0]
+    assert len(torch.unique(live, dim=0)) == len(live) == len(np.unique(np.trunc(pts[:, :3]), axis=0))
+
+
+def test_negative_coords_truncation():
+    """The analog of tests/test_hashmap.py's test: -0.4 / 1.0 truncates to
+    voxel 0, as static_cast<int> does, so both points share one block;
+    the map equals the JAX package's slot for slot."""
+    pts = np.array([[-0.4, -0.4, -0.4, 40.0], [0.4, 0.4, 0.4, 50.0]], np.float32)
+    mj = jhm.insert(jhm.create(1024, K), jnp.asarray(pts), jnp.ones(2, bool), VOXEL, BASIC, jnp.asarray(mask_np()),
+                    policy_kernel=False)
+    mt, _ = thm.insert(thm.create(1024, K), t(pts), torch.ones(2, dtype=torch.bool), VOXEL, BASIC, t(mask_np()))
+    assert_maps_equal(mj, mt)
+    assert int(mt.counts.sum()) == 2 and int((mt.counts > 0).sum()) == 1
+    assert mt.keys[mt.counts > 0].tolist() == [[0, 0, 0]]

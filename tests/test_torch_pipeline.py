@@ -99,14 +99,64 @@ def test_carried_state_step_matches_jax(fixture_scans, jax_run):
     assert abs(int(aux.icp_iterations) - int(aux_j.icp_iterations)) <= 1
 
 
-def test_golden_trajectory(fixture_scans):
+@pytest.fixture(scope="module")
+def port_run(fixture_scans):
+    """The port's SageICP over the 12 frames; its state (as numpy) after
+    the third."""
     scans, _ = fixture_scans
     odom = tpl.SageICP(port_config(), device="cpu")
-    for scan in scans:
+    third = None
+    for i, scan in enumerate(scans):
         odom.register_frame(scan)
+        if i == 2:
+            third = state_to_numpy(odom.state)
+    return odom, third
+
+
+def test_golden_trajectory(port_run):
+    odom, _ = port_run
     est = odom.trajectory()
     golden = np.load(GOLDEN_PATH)["poses"]
     assert golden.shape == est.shape
     assert np.linalg.norm(golden[:, :3, 3] - est[:, :3, 3], axis=-1).max() < 0.02
     assert np.linalg.norm(golden[:, :3, :3] - est[:, :3, :3], axis=(-2, -1)).max() < 0.02
     assert int(odom.aux_totals().overflow_total()) == 0
+
+
+def test_first_frame_pose_is_identity(port_run, jax_run):
+    """The analog of tests/test_pipeline.py's test: the first pose is the
+    identity, in the port's SageICP and in the JAX package's."""
+    odom, _ = port_run
+    np.testing.assert_allclose(odom.trajectory()[0], np.eye(4), atol=1e-5)
+    np.testing.assert_array_equal(odom.trajectory()[0], jax_run[0][0]["last_pose"])
+
+
+def test_adaptive_threshold_engages(port_run, jax_run):
+    """After 12 frames of 1 m steps the threshold has adapted (the JAX
+    test's bar); after three frames its state equals the JAX package's
+    (sample count equal, SSE within 1e-4 relative)."""
+    odom, third = port_run
+    assert int(odom.state.threshold.num_samples) >= 1
+    assert float(odom.last_aux.sigma) != pytest.approx(2.0)
+    want = jax_run[0][2]
+    assert int(third["threshold.num_samples"]) == int(want["threshold.num_samples"])
+    np.testing.assert_allclose(third["threshold.sse"], want["threshold.sse"], rtol=1e-4)
+    np.testing.assert_allclose(third["threshold.model_deviation"], want["threshold.model_deviation"], atol=1e-4)
+
+
+def test_reinitialize_resets(fixture_scans, jax_run):
+    """Two frames, then reinitialize: no poses, no counters, an empty
+    map; the next frame is a first frame again, its map equal to the JAX
+    package's first-frame map."""
+    scans, _ = fixture_scans
+    odom = tpl.SageICP(port_config(), device="cpu")
+    for scan in scans[:2]:
+        odom.register_frame(scan)
+    odom.reinitialize()
+    assert odom.poses == [] and odom.icp_iters == [] and odom.trajectory().shape == (0, 4, 4)
+    assert int(odom.state.num_poses) == 0
+    assert not bool(torch.any(odom.state.map.counts > 0))
+    np.testing.assert_array_equal(odom.register_frame(scans[0]), np.eye(4, dtype=np.float32))
+    got, want = state_to_numpy(odom.state), jax_run[0][0]
+    for name in ("map.keys", "map.counts", "map.points"):
+        np.testing.assert_array_equal(got[name], want[name])
