@@ -81,6 +81,22 @@ Phases, each fatal on failure:
      once a frame (replicated). Each rank's ms/frame is printed: two ranks
      share one card, so it is not a scaling figure. 10a also prints the
      host time of one GN-sum exchange and of one insert gather over NCCL.
+ 11. the dense voxel-grid index: PRESETS["kitti"] and PRESETS["city"] with
+     dense_grid on and off, three runs of each, alternated, on phase 6's
+     (and phase 4's) scans with that phase's calls: every trajectory
+     equal to the phase's bit for bit, the grid runs' final maps equal to
+     the phase's slot for slot and their grids consistent with their maps
+     (every live slot's cell holds the slot and its checksum, no two live
+     slots share a cell, no cell points at a dead slot), no drop, ATE
+     < 0.05 m, the kernels launched as on the phase; ms/frame of each run;
+     with --profile, each setting's breakdown and the device time the
+     grid adds or removes by the profiler's names;
+ 12. the long horizon: scripts/long_run.py's 150-frame city drive (its
+     world, trajectory, seeds, configuration and chunks of 30, this
+     script's own copy) with dense_grid off and on: each inside
+     test_long_horizon_city_drive's bounds (relative translation < 0.12 %,
+     rotation < 0.06 deg/m, ATE < 0.12 m, final error < 0.4 m, no drop),
+     the two equal bit for bit, maps slot for slot, the grid consistent.
 The line before the device line is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits non-zero and prints no result.
@@ -89,6 +105,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -119,6 +136,8 @@ TWO_RANKS_TIMEOUT_S = 600
 CLI_OUT = os.path.join(ROOT, "build", "cli_smoke")
 CLI_FRAMES = 40
 WARMUP, FRAMES = 10, 30  # each path: warm-up and timed frames
+GRID_REPEATS = 3  # phase 11: runs with the grid on and with it off, alternated
+LONG_FRAMES, LONG_CHUNK = 150, 30  # phase 12: scripts/long_run.py's drive
 
 
 def fail(msg: str) -> None:
@@ -771,14 +790,14 @@ def kitti_checks(odom, scan):
     return launches
 
 
-def profile(name, odom, scans, tss=None) -> float:
+def profile(name, odom, scans, tss=None) -> tuple[float, dict]:
     """Optional phase 8 (--profile): where the time of a frame goes, on
     the frames that follow the path's (with their per-point timestamps
     `tss` on the deskew path). First the host phases of the next frame,
     timed with a synchronise after each (the state held fixed, repeated);
     then the device's busy share and its kernels by total time from
     torch.profiler while the frames are registered. Returns the device
-    busy ms a frame."""
+    busy ms a frame and {profiler name: (ms a frame, calls a frame)}."""
     from sage_icp_tpu_torch.models import pipeline as pl
     from sage_icp_tpu_torch.ops import geometry as geo
     from sage_icp_tpu_torch.ops import hashmap as hm
@@ -838,7 +857,7 @@ def profile(name, odom, scans, tss=None) -> float:
     for e in events:
         if any(k in e.key for k in PORT_KERNELS):
             print(line(e), flush=True)
-    return busy_us / 1e3 / n
+    return busy_us / 1e3 / n, {e.key: (e.self_device_time_total / 1e3 / n, e.count / n) for e in events}
 
 
 def run_cli(mode: str, extra: list) -> dict:
@@ -903,8 +922,6 @@ def skew(scans, frames):
 def deskew_drive(deskew: bool, scans, tss, gt):
     """Phase 9.3: the kitti preset, deskew on or off, over the skewed
     scans; no drop, the launches. Returns (odom, ATE, ms/frame)."""
-    import dataclasses
-
     from sage_icp_tpu_torch.models.pipeline import PRESETS, SageICP
     from sage_icp_tpu_torch.ops import cuda_lib
 
@@ -1143,6 +1160,160 @@ def multi_rank_phase(scans, traj, gt, dev, profile_scans=None) -> None:
     two_ranks_one_card(scans, traj, gt, dev)
 
 
+def map_differs(a, b) -> list:
+    """The fields of two maps (keys, counts, points, first points) that are
+    not equal slot for slot."""
+    return [f for f in ("keys", "counts", "points", "first_pts") if not torch.equal(getattr(a, f), getattr(b, f))]
+
+
+def check_grid(name: str, m) -> int:
+    """The dense index agrees with the table: every live slot's cell holds
+    that slot and its checksum, no two live slots share a cell, and no
+    other cell holds a slot (none points at a dead one). Returns the live
+    slots."""
+    from sage_icp_tpu_torch.ops import hashmap as hm
+
+    live = torch.nonzero(m.counts > 0)[:, 0]
+    cells = hm.grid_index(m.keys[live]).long()
+    if torch.unique(cells).numel() != live.numel():
+        fail(f"{name}: two live slots share a grid cell")
+    want = torch.stack([live.to(torch.int32), hm.grid_hi_code(m.keys[live])], dim=-1)
+    if not torch.equal(m.grid[cells], want):
+        fail(f"{name}: a live slot's grid cell does not hold its slot and checksum")
+    used = int((m.grid[:, 0] >= 0).sum())
+    if used != live.numel():
+        fail(f"{name}: {used} grid cells hold a slot for {live.numel()} live slots")
+    return live.numel()
+
+
+def grid_diff(name: str, on: dict, off: dict, top: int = 12) -> None:
+    """--profile: the device time a frame that the grid adds (+) or
+    removes (-), by the profiler's names, largest first."""
+    rows = []
+    for key in set(on) | set(off):
+        (t_on, c_on), (t_off, c_off) = on.get(key, (0.0, 0.0)), off.get(key, (0.0, 0.0))
+        rows.append((t_on - t_off, c_on - c_off, t_on, t_off, key))
+    rows.sort(key=lambda r: -abs(r[0]))
+    print(f"{name} grid on minus off, device ms/frame (calls/frame), by the profiler's names:", flush=True)
+    for dt, dc, t_on, t_off, key in rows[:top]:
+        print(f"  {dt:+9.4f} ms ({dc:+7.1f}x)  on {t_on:8.4f} off {t_off:8.4f}  {key[:90]}", flush=True)
+
+
+def dense_grid_phase(name: str, scans, ref_traj, ref_map, gt, profile_scans=None) -> None:
+    """Phase 11 on one path: PRESETS[name] with dense_grid on and off,
+    GRID_REPEATS runs of each, alternated, on the path's scans with its
+    calls. Every run's trajectory equals the path's bit for bit; the grid
+    run's final map equals the path's slot for slot and its grid is
+    consistent; no drop; ATE < 0.05 m; the kernels launched as on the
+    path."""
+    from sage_icp_tpu_torch.models.pipeline import PRESETS, SageICP
+
+    n = WARMUP + FRAMES
+    filt = PRESETS[name].dynamic_vehicle_filter
+    ms = {True: [], False: []}
+    last = {}
+    for rep in range(GRID_REPEATS):
+        for grid in ((True, False) if rep % 2 == 0 else (False, True)):
+            odom = SageICP(dataclasses.replace(PRESETS[name], dense_grid=grid))
+            elapsed, launches = register(odom, scans, WARMUP, n)
+            ms[grid].append(1e3 * elapsed / FRAMES)
+            label = f"{name} dense_grid={grid} run {rep + 1}"
+            traj = odom.trajectory()
+            if not np.array_equal(traj, ref_traj):
+                fail(f"{label}: trajectory differs from the {name} path's: max |diff| {np.abs(traj - ref_traj).max()}")
+            totals = odom.aux_totals()
+            if int(totals.overflow_total()) != 0:
+                fail(f"{label}: silent-drop counters over all frames: {totals}")
+            ate = ate_of(traj, gt)
+            if not ate < 0.05:
+                fail(f"{label}: ATE {ate} m")
+            expect_launches(label, launches, sum(odom.icp_iters), n, n if filt else 0)
+            if grid != (odom.state.map.grid is not None):
+                fail(f"{label}: the map's grid is {odom.state.map.grid}")
+            if grid:
+                bad = map_differs(odom.state.map, ref_map)
+                if bad:
+                    fail(f"{label}: final map differs from the {name} path's in {bad}")
+                live = check_grid(label, odom.state.map)
+            last[grid] = odom
+    print(f"{name} dense grid: trajectories equal to the {name} path's bit for bit in all {2 * GRID_REPEATS} runs, "
+          f"the grid runs' final maps slot for slot, grid consistent over {live} live slots; ATE {ate:.5f} m; "
+          f"launches {launches}; ms/frame grid on {[round(x, 3) for x in ms[True]]} (median "
+          f"{np.median(ms[True]):.3f}), off {[round(x, 3) for x in ms[False]]} (median {np.median(ms[False]):.3f})",
+          flush=True)
+    if profile_scans:
+        _, on = profile(f"{name} dense grid on", last[True], profile_scans)
+        _, off = profile(f"{name} dense grid off", last[False], profile_scans)
+        grid_diff(name, on, off)
+
+
+def long_city_config():
+    """This package's copy of scripts/long_run.py's configuration: the
+    robustness suite's small config with the map sized for the 260 m
+    world (~52k live voxels under the 100 m cull)."""
+    from sage_icp_tpu_torch.models.pipeline import SageConfig
+
+    return SageConfig(scan_capacity=16384, frame_capacity=16384, source_capacity=8192, map_capacity=131072,
+                      max_icp_iterations=500, dynamic_vehicle_filter=False, min_range=1.0,
+                      corr_unique_voxel_rows=8192, corr_overflow_rows=512, insert_unique_capacity=9216)
+
+
+def long_horizon_phase() -> None:
+    """Phase 12: scripts/long_run.py's 150-frame city drive (its world,
+    trajectory, render seed and chunk of 30), with dense_grid off and on.
+    Gates: test_long_horizon_city_drive's bounds on each, the two
+    trajectories equal bit for bit and the final maps slot for slot, the
+    grid consistent, the kernels launched once per ICP iteration (GN) and
+    once a frame (policy)."""
+    from sage_icp_tpu_torch.metrics import kitti as metrics
+    from sage_icp_tpu_torch.models.pipeline import SageICP
+    from sage_icp_tpu_torch.ops import cuda_lib
+    from sage_icp_tpu_torch.utils import synthetic
+
+    pts, labs = synthetic.build_city_world(seed=2, size=260.0, block=50.0, density=1.6)
+    gt = synthetic.make_trajectory(LONG_FRAMES, step=1.0, curve=0.0, jitter=0.1, seed=11)
+    rng = np.random.default_rng(9)
+    t0 = time.perf_counter()
+    scans = [synthetic.render_scan(pts, labs, gt[i], rng, n_target=14000) for i in range(LONG_FRAMES)]
+    print(f"long horizon: rendered {LONG_FRAMES} scans in {time.perf_counter() - t0:.1f} s", flush=True)
+    gt_rel = np.linalg.inv(gt[0])[None] @ gt
+    runs = {}
+    for grid in (False, True):
+        odom = SageICP(dataclasses.replace(long_city_config(), dense_grid=grid))
+        cuda_lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, LONG_FRAMES, LONG_CHUNK):
+            odom.register_chunk(scans[i : i + LONG_CHUNK])
+        est = odom.trajectory()
+        elapsed = time.perf_counter() - t0
+        launches = dict(cuda_lib.LAUNCHES)
+        t_err, r_err = metrics.seq_error(gt_rel, est)
+        _, ate = metrics.absolute_trajectory_error(gt_rel, est)
+        out = dict(rel_trans_err_pct=float(t_err), rel_rot_err_deg_per_m=float(r_err), ate_trans_m=float(ate),
+                   final_err_m=float(np.linalg.norm(est[-1][:3, 3] - gt_rel[-1][:3, 3])),
+                   overflow_total=int(odom.aux_totals().overflow_total()))
+        label = f"long horizon dense_grid={grid}"
+        if not (out["overflow_total"] == 0 and out["rel_trans_err_pct"] < 0.12 and out["rel_rot_err_deg_per_m"] < 0.06
+                and out["ate_trans_m"] < 0.12 and out["final_err_m"] < 0.4):
+            fail(f"{label}: outside test_long_horizon_city_drive's bounds: {out}")
+        expect_launches(label, launches, sum(odom.icp_iters), LONG_FRAMES, 0)
+        if grid:
+            out["live_slots"] = check_grid(label, odom.state.map)
+        print(f"{label}: {json.dumps(out)}; {1e3 * elapsed / LONG_FRAMES:.3f} ms/frame over {LONG_FRAMES} frames in "
+              f"chunks of {LONG_CHUNK} (first chunk included); ICP iterations {sum(odom.icp_iters)}; "
+              f"launches {launches}", flush=True)
+        runs[grid] = (est, odom.state.map)
+    if not np.array_equal(runs[True][0], runs[False][0]):
+        fail(f"long horizon: the grid's trajectory differs: max |diff| {np.abs(runs[True][0] - runs[False][0]).max()}")
+    bad = map_differs(runs[True][1], runs[False][1])
+    if bad:
+        fail(f"long horizon: the grid's final map differs in {bad}")
+    print("long horizon: dense_grid on and off equal bit for bit, final maps slot for slot; JAX on the CPU "
+          "(LONGRUN_r05.json): rel_trans_err_pct 0.02177, rel_rot_err_deg_per_m 0.01064, ate_trans_m 0.02194, "
+          "final_err_m 0.0797, overflow_total 0", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true", help="stop after phase 3")
@@ -1185,20 +1356,24 @@ def main() -> int:
     n = WARMUP + FRAMES
     extra = 5 if args.profile else 0
     city = SageICP("city")
-    city_scans, _, _ = drive("city", city, 0.7, WARMUP, FRAMES, extra)
+    city_scans, _, city_gt = drive("city", city, 0.7, WARMUP, FRAMES, extra)
+    city_traj, city_map = city.trajectory(), city.state.map
     nn_launches = single_pass(city, city_scans[n - 1])
     kitti = SageICP()  # the default preset
     if kitti.config != PRESETS["kitti"] or not kitti.config.dynamic_vehicle_filter:
         fail("SageICP() is not the kitti preset with its dynamic filter")
     kitti_scans, launches, kitti_gt = drive("kitti", kitti, 1.3, WARMUP, FRAMES, extra)
-    kitti_traj = kitti.trajectory()
+    kitti_traj, kitti_map = kitti.trajectory(), kitti.state.map
     sort_launches = kitti_checks(kitti, kitti_scans[n - 1])
     deskew_odom, skewed, tss, deskew_kernel_ms = runtime_phase(kitti_scans, dev)
     multi_rank_phase(kitti_scans[:n], kitti_traj, kitti_gt, dev, kitti_scans[n:] if args.profile else None)
+    dense_grid_phase("kitti", kitti_scans, kitti_traj, kitti_map, kitti_gt, kitti_scans[n:] if args.profile else None)
+    dense_grid_phase("city", city_scans, city_traj, city_map, city_gt, city_scans[n:] if args.profile else None)
+    long_horizon_phase()
     if args.profile:
         profile("city", city, city_scans[n:])
         profile("kitti", kitti, kitti_scans[n:])
-        busy = profile("kitti deskew", deskew_odom, skewed[n:], tss[n:])
+        busy, _ = profile("kitti deskew", deskew_odom, skewed[n:], tss[n:])
         print(f"deskew share of the deskew path's device busy time (kernel_ms / busy): {deskew_kernel_ms:.4f} / "
               f"{busy:.3f} ms = {deskew_kernel_ms / busy:.4f}", flush=True)
     # launches: the kitti path's, the NN kernel's single-pass search and

@@ -14,11 +14,9 @@ scan goes to the device as one packed (cap, 4|5) buffer: xyz, label and,
 with deskew on, a timestamp lane; float32, or int16 with
 quantized_scan_upload. The configuration and presets are this package's
 own copy of the JAX reference's (field for field); SageICP() runs the
-default, the production `kitti` preset.
-
-Not in this package: the dense grid index (default off in the reference
-and measured slower there); a configuration that turns it on is refused
-(check_supported).
+default, the production `kitti` preset. dense_grid=True keeps the map's
+dense voxel index (ops/hashmap.py) and looks voxels up through it; the
+trajectory and the map are the same as without it.
 """
 
 from __future__ import annotations
@@ -186,9 +184,29 @@ def _i32(v, device) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.int32, device=device)
 
 
+def check_dense_grid(config: SageConfig) -> None:
+    """The dense index is alias-free only while every live voxel of the
+    culled map has a torus cell of its own: refuse a configuration whose
+    map could span the period (as the JAX package's init_state does)."""
+    if not config.dense_grid:
+        return
+    span = 2.0 * config.local_map_range / config.voxel_size_map + 4
+    if span >= 1 << hm.GRID_XY_BITS:
+        raise ValueError(f"dense_grid needs the culled map to span < {1 << hm.GRID_XY_BITS} voxels, "
+                         f"local_map_range={config.local_map_range} at voxel_size_map={config.voxel_size_map} "
+                         f"spans {span:g}: lower local_map_range, raise voxel_size_map, or set dense_grid=False")
+    zspan = config.dense_grid_z_extent / config.voxel_size_map + 4
+    if zspan >= 1 << hm.GRID_Z_BITS:
+        raise ValueError(f"dense_grid's z period ({1 << hm.GRID_Z_BITS} voxels) cannot hold "
+                         f"dense_grid_z_extent={config.dense_grid_z_extent} m at voxel_size_map="
+                         f"{config.voxel_size_map} ({zspan:g} voxels): raise voxel_size_map, lower "
+                         "dense_grid_z_extent, or set dense_grid=False")
+
+
 def init_state(config: SageConfig, device) -> OdomState:
+    check_dense_grid(config)
     return OdomState(
-        map=hm.create(config.map_capacity, config.points_per_voxel, device),
+        map=hm.create(config.map_capacity, config.points_per_voxel, device, dense_grid=config.dense_grid),
         last_pose=_eye(device), prev_pose=_eye(device), first_pose=_eye(device),
         num_poses=_i32(0, device),
         threshold=ThresholdState(_eye(device), torch.zeros((), device=device), _i32(0, device)),
@@ -296,13 +314,6 @@ def basic_label_mask(config: SageConfig, device, num_labels: int = 260) -> torch
     return m
 
 
-def check_supported(config: SageConfig) -> None:
-    """Refuse the setting this package does not implement, rather than
-    ignore it."""
-    if config.dense_grid:
-        raise NotImplementedError("not ported: dense_grid")
-
-
 def odometry_step(state: OdomState, points, valid, timestamps, config: SageConfig, mesh=None,
                   shard_insert: bool = True):
     """One odometry step. points (scan_capacity, 4) sensor-frame
@@ -314,7 +325,6 @@ def odometry_step(state: OdomState, points, valid, timestamps, config: SageConfi
     mesh (parallel.sharding.Mesh): every rank steps the whole scan; the
     GN rows and, with shard_insert, the insert's policy rows are split
     across the ranks (parallel/sharding.py)."""
-    check_supported(config)
     dev = points.device
     prep = prepare_icp_inputs(state, points, valid, timestamps, config)
     source_valid = prep["source_valid"]
@@ -459,7 +469,6 @@ class SageICP:
     def __init__(self, config: SageConfig | str = "kitti", device=None):
         if isinstance(config, str):
             config = PRESETS[config]
-        check_supported(config)
         self.config = config
         self.device = resolve_device(device)
         self.mesh = None  # parallel.sharding.ShardedSageICP sets its mesh

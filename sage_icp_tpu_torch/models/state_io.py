@@ -3,7 +3,8 @@
 Keys are the dotted field paths of OdomState ("map.keys",
 "threshold.sse", "last_pose", ...), the same paths as the JAX reference
 package's OdomState, so a state can cross between the two packages (and
-to disk) as plain numpy arrays.
+to disk) as plain numpy arrays. "map.grid" is there only when the map
+keeps a dense index.
 """
 
 from __future__ import annotations
@@ -46,11 +47,13 @@ def state_to_numpy(state) -> dict:
 
 
 def state_from_numpy(d: dict, device) -> OdomState:
-    """Inverse of state_to_numpy: every leaf becomes a tensor on device."""
+    """Inverse of state_to_numpy: every leaf becomes a tensor on device;
+    the map has no dense index when "map.grid" is absent."""
     t = {k: torch.as_tensor(np.array(d[k]), dtype=dt).to(device) for k, dt in _DTYPES.items()}
+    grid = torch.as_tensor(np.array(d["map.grid"]), dtype=torch.int32).to(device) if "map.grid" in d else None
     return OdomState(
         map=MapState(keys=t["map.keys"], counts=t["map.counts"], points=t["map.points"],
-                     first_pts=t["map.first_pts"]),
+                     first_pts=t["map.first_pts"], grid=grid),
         last_pose=t["last_pose"], prev_pose=t["prev_pose"], first_pose=t["first_pose"],
         num_poses=t["num_poses"],
         threshold=ThresholdState(t["threshold.model_deviation"], t["threshold.sse"],

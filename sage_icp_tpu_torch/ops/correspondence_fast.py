@@ -96,7 +96,9 @@ def corr_setup(state: hm.MapState, tables: ProbeTables, query, valid, voxel_size
                unique_voxel_rows: int = 4096, queries_per_voxel: int = 8,
                overflow_rows: int = 1024) -> CorrSetup:
     """Group (N, 4) world-frame queries by voxel and gather their
-    candidate planes. Never synchronises the host."""
+    candidate planes. The neighbours' slots come from the map's dense
+    index when it has one, else from the probe tables; the planes come
+    from tables.points2 either way. Never synchronises the host."""
     n = query.shape[0]
     dev = query.device
     K = state.points_per_voxel
@@ -152,8 +154,14 @@ def corr_setup(state: hm.MapState, tables: ProbeTables, query, valid, voxel_size
     )
 
     nb_rel = row_rel[:, None, :] + hm.neighbor_offsets(dev)[None]  # (R, 27, 3)
-    nb_code = torch.where(row_live[:, None], pack_rel(nb_rel), -1)
-    found, slot = probe(tables, nb_rel + center, nb_code, probe_depth)
+    if state.grid is not None:
+        # the dense index: one 8-byte row per neighbour in place of a
+        # probe_depth-deep window row
+        found, slot = hm.grid_probe(state, nb_rel + center)
+        found = found & row_live[:, None]
+    else:
+        nb_code = torch.where(row_live[:, None], pack_rel(nb_rel), -1)
+        found, slot = probe(tables, nb_rel + center, nb_code, probe_depth)
 
     raw = tables.points2[torch.where(found, slot, 0).reshape(-1).long()]  # (R*27, 4K)
     M = 27 * K

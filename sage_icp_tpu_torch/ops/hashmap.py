@@ -7,11 +7,20 @@ tsl::robin_map<Voxel, VoxelBlock>).
     counts:    int32 (C,)       live points in the slot's block (0 = free)
     points:    int16 (C, 4, K)  PLANAR quantized block [x | y | z | label]
     first_pts: f32   (C, 3)     each block's first point, world frame
+    grid:      int32 (2^22, 2)  optional dense index [slot | hi-check]
 
 Points are stored as int16 voxel-local offsets (full scale = one voxel).
 Collisions use triangular probing over probe_depth slots; a new voxel
 claims a slot in scatter-min rounds (lowest row id wins a race). Every
 drop is counted in InsertStats.
+
+The dense index (dense_grid): a torus of 256 x 256 x 64 voxel cells,
+each holding the slot of the live voxel in it and a checksum of the
+coordinate bits above the torus period. One 8-byte row gather finds a
+voxel's slot instead of a probe_depth-deep window. It is alias-free while
+the culled map spans fewer cells than the period (the pipeline's
+init_state refuses configurations that could exceed it); insert and
+remove_far keep it in step with the table.
 
 Retention policy (VoxelBlock::AddPoint), applied in scan order per voxel
 by ops.policy_kernel.apply_policy:
@@ -22,7 +31,8 @@ by ops.policy_kernel.apply_policy:
 Updates are functional, like the reference: insert and remove_far return
 new tensors and leave the input state untouched. The one large copy per
 frame is the (C, 4, K) block buffer (42 MB at the city preset, tens of
-microseconds on the card).
+microseconds on the card); with the dense index, the 32 MiB grid is
+copied once by insert and once by remove_far.
 """
 
 from __future__ import annotations
@@ -48,6 +58,12 @@ HASH_LAYOUT_VERSION = 3
 _U32 = 0xFFFFFFFF
 _I32_MAX = 2**31 - 1
 
+# Dense-index geometry: 8 bits of x and y (a 256-voxel period), 6 of z
+# (64 voxels); 2^22 cells of 8 bytes.
+GRID_XY_BITS = 8
+GRID_Z_BITS = 6
+GRID_SIZE = 1 << (2 * GRID_XY_BITS + GRID_Z_BITS)
+
 
 class InsertStats(NamedTuple):
     """Per-frame drop counters (0-dim int32): voxels beyond the unique
@@ -64,6 +80,7 @@ class MapState(NamedTuple):
     counts: torch.Tensor  # int32 (C,)
     points: torch.Tensor  # int16 (C, 4, K) planar quantized blocks
     first_pts: torch.Tensor  # f32 (C, 3)
+    grid: torch.Tensor | None = None  # int32 (GRID_SIZE, 2) [slot | hi-check], slot -1 empty; None without the index
 
     @property
     def capacity(self) -> int:
@@ -74,15 +91,57 @@ class MapState(NamedTuple):
         return self.points.shape[2]
 
 
-def create(capacity: int, points_per_voxel: int, device=None, dtype=torch.float32) -> MapState:
+def create(capacity: int, points_per_voxel: int, device=None, dtype=torch.float32,
+           dense_grid: bool = False) -> MapState:
     if capacity <= 0 or capacity & (capacity - 1):
         raise ValueError(f"map capacity {capacity} is not a power of two")
+    grid = None
+    if dense_grid:
+        grid = torch.zeros((GRID_SIZE, 2), dtype=torch.int32, device=device)
+        grid[:, 0] = -1
     return MapState(
         keys=torch.full((capacity, 3), EMPTY_KEY, dtype=torch.int32, device=device),
         counts=torch.zeros((capacity,), dtype=torch.int32, device=device),
         points=torch.zeros((capacity, 4, points_per_voxel), dtype=torch.int16, device=device),
         first_pts=torch.full((capacity, 3), INVALID_COORD, dtype=dtype, device=device),
+        grid=grid,
     )
+
+
+def grid_index(keys: torch.Tensor) -> torch.Tensor:
+    """Voxel coords (…, 3) int32 -> their torus cell (…,) int32: the low
+    bits of each coordinate in two's complement."""
+    xy, z = (1 << GRID_XY_BITS) - 1, (1 << GRID_Z_BITS) - 1
+    return (((keys[..., 0] & xy) << (GRID_XY_BITS + GRID_Z_BITS)) | ((keys[..., 1] & xy) << GRID_Z_BITS)
+            | (keys[..., 2] & z))
+
+
+def grid_hi_code(keys: torch.Tensor) -> torch.Tensor:
+    """Checksum (…,) int32 of the coordinate bits above the torus period
+    (arithmetic shifts): hx*73856093 ^ hy*19349663 ^ hz*83492791 with
+    int32 wraparound, computed in int64 and wrapped explicitly so that
+    every device gives the same bits."""
+    k = keys.to(torch.int64)
+    h = ((k[..., 0] >> GRID_XY_BITS) * 73856093 ^ (k[..., 1] >> GRID_XY_BITS) * 19349663
+         ^ (k[..., 2] >> GRID_Z_BITS) * 83492791) & _U32
+    return torch.where(h > _I32_MAX, h - (1 << 32), h).to(torch.int32)
+
+
+def grid_probe(state: MapState, query_keys: torch.Tensor):
+    """Dense-index lookup of voxel keys (…, 3): (found, slot), the slot 0
+    where not found. One 8-byte row gather and a checksum compare. A
+    found slot's block is live: insert and remove_far clear a cell
+    whenever its voxel leaves its slot."""
+    g = state.grid[grid_index(query_keys).long()]
+    slot = g[..., 0]
+    found = (slot >= 0) & (g[..., 1] == grid_hi_code(query_keys))
+    return found, torch.where(found, slot, 0)
+
+
+def _grid_with_spare(grid: torch.Tensor) -> torch.Tensor:
+    """A copy of the grid with one spare row at GRID_SIZE for the writes
+    to drop: the one copy a functional update needs."""
+    return torch.cat([grid, grid[:1]])
 
 
 def set_rows(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor, write: torch.Tensor) -> torch.Tensor:
@@ -219,7 +278,10 @@ def insert(
     seg_len = seg_len[:U]
 
     # --- a slot per unique voxel: lookup, then claim rounds -----------------
-    if tables is not None:
+    if state.grid is not None:
+        found_u, slots_u = grid_probe(state, ukeys)
+        slot_u = torch.where(u_live & found_u, slots_u, -1)
+    elif tables is not None:
         from sage_icp_tpu_torch.ops import correspondence_fast as cf
 
         found_u, slots_u = cf.probe(tables, ukeys, cf.pack_rel(ukeys - tables.center[None, :]), probe_depth)
@@ -251,8 +313,29 @@ def insert(
     newly = need_claim & (slot_u >= 0)
     new_keys = set_rows(state.keys, slot_u, ukeys, newly)
     new_counts = set_rows(state.counts, slot_u, torch.zeros_like(slot_u), newly)
-
     has_slot = u_live & (slot_u >= 0)
+
+    grid = state.grid
+    if grid is not None:
+        # a re-claimed slot's previous owner (a culled voxel) may still
+        # own a cell pointing here: clear it unless another voxel has
+        # taken the cell since. Both reads come before any write, and the
+        # clears before this frame's rows (a voxel may land in the cell
+        # it clears).
+        old_keys = state.keys[torch.where(newly, slot_u, 0).long()]
+        had_owner = newly & torch.any(old_keys != EMPTY_KEY, dim=-1)
+        t_old = grid_index(old_keys)
+        still_ours = grid[t_old.long(), 0] == slot_u
+        grid = _grid_with_spare(grid)
+        # index_fill_: a Python scalar assigned through an index would be
+        # uploaded from the host
+        grid[:, 0].index_fill_(0, torch.where(had_owner & still_ours, t_old, GRID_SIZE).long(), -1)
+        # distinct live voxels hold distinct cells (the culled span is
+        # below the period), so these writes never collide
+        t_new = torch.where(has_slot, grid_index(ukeys), GRID_SIZE).long()
+        grid[t_new] = torch.stack([slot_u, grid_hi_code(ukeys)], dim=-1)
+        grid = grid[:GRID_SIZE]
+
     stats = InsertStats(
         unique_overflow=torch.clamp(n_unique - U, min=0).to(torch.int32),
         claim_failures=(need_claim & (slot_u < 0)).sum(dtype=torch.int32),
@@ -294,7 +377,7 @@ def insert(
         compact, cnt2 = _gather_rows(mesh, compact, cnt2)
     out = _insert_writeback(
         state, points2, compact, cnt2[:, 0], has_slot, slot_u, ukeys,
-        new_keys, new_counts, voxel_size, cap, kmax, U,
+        new_keys, new_counts, grid, voxel_size, cap, kmax, U,
     )
     return out, stats
 
@@ -312,7 +395,7 @@ def _gather_rows(mesh, compact: torch.Tensor, counts: torch.Tensor):
 
 
 def _insert_writeback(state, points2, compact, ccounts, has_slot, slot_u, ukeys,
-                      new_keys, new_counts, voxel_size, cap, kmax, U) -> MapState:
+                      new_keys, new_counts, grid, voxel_size, cap, kmax, U) -> MapState:
     """Write the policy-updated blocks back (slots are unique across live
     rows). The label plane is sanitised on the way out: lanes at or
     beyond the block's count get label -1, so the correspondence search
@@ -325,27 +408,38 @@ def _insert_writeback(state, points2, compact, ccounts, has_slot, slot_u, ukeys,
     dt = state.first_pts.dtype
     first_world = compact[:, :3, 0].to(dt) * (voxel_size / QSCALE) + ukeys.to(dt) * voxel_size
     new_first = set_rows(state.first_pts, slot_u, first_world, has_slot)
-    return MapState(keys=new_keys, counts=new_counts, points=new_points, first_pts=new_first)
+    return MapState(keys=new_keys, counts=new_counts, points=new_points, first_pts=new_first, grid=grid)
 
 
 def remove_far(state: MapState, origin: torch.Tensor, max_distance) -> MapState:
     """Erase blocks whose FIRST point lies farther than max_distance from
     origin: count 0, key EMPTY_KEY, first point INVALID_COORD, so no
-    probe can match the stale block again."""
+    probe can match the stale block again; the dense index's cell of each
+    killed block is cleared while the block still owns it."""
     d = state.first_pts - origin[None, :]
     d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
     kill = (state.counts > 0) & (d2 > max_distance * max_distance)
     killn = kill[:, None]
+    grid = state.grid
+    if grid is not None:
+        t = grid_index(state.keys)
+        still = grid[t.long(), 0] == torch.arange(state.capacity, dtype=torch.int32, device=t.device)
+        grid = _grid_with_spare(grid)
+        grid[:, 0].index_fill_(0, torch.where(kill & still, t, GRID_SIZE).long(), -1)
+        grid = grid[:GRID_SIZE]
     return state._replace(
         counts=torch.where(kill, 0, state.counts),
         keys=torch.where(killn, EMPTY_KEY, state.keys),
         first_pts=torch.where(killn, INVALID_COORD, state.first_pts),
+        grid=grid,
     )
 
 
 def clear(state: MapState) -> MapState:
-    """An empty map of the same capacity, block size, dtype and device."""
-    return create(state.capacity, state.points_per_voxel, state.counts.device, state.first_pts.dtype)
+    """An empty map of the same capacity, block size, dtype, device and
+    dense index (or none)."""
+    return create(state.capacity, state.points_per_voxel, state.counts.device, state.first_pts.dtype,
+                  dense_grid=state.grid is not None)
 
 
 def is_empty(state: MapState) -> torch.Tensor:

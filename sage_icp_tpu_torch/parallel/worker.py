@@ -15,7 +15,7 @@ names a JSON object of SageConfig fields applied over --preset. Without
 writes to --out:
 
   poses_<rank>.npy   (F, 4, 4) trajectory
-  map_<rank>.npz     the final map (keys, counts, points, first_pts)
+  map_<rank>.npz     the final map (keys, counts, points, first_pts; grid with dense_grid)
   rank_<rank>.json   the aux totals, the ICP iterations of each frame,
                      cuda_lib.LAUNCHES, the row counts the GN and policy
                      wrappers were called with, and ms per frame
@@ -114,7 +114,8 @@ def main(argv=None) -> dict:
     os.makedirs(args.out, exist_ok=True)
     r = mesh.rank
     np.save(os.path.join(args.out, f"poses_{r}.npy"), odom.trajectory())
-    np.savez(os.path.join(args.out, f"map_{r}.npz"), **{k: v.cpu().numpy() for k, v in odom.state.map._asdict().items()})
+    np.savez(os.path.join(args.out, f"map_{r}.npz"),
+             **{k: v.cpu().numpy() for k, v in odom.state.map._asdict().items() if v is not None})
     totals = odom.aux_totals()
     report = dict(
         rank=r, world=mesh.size, backend=args.backend or "nccl", device=str(mesh.device),

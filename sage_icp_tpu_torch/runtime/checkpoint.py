@@ -31,6 +31,7 @@ def save_state(path: str, odom: SageICP) -> None:
     np.savez_compressed(
         path,
         **{key: state[field] for key, field in NPZ_FIELDS.items()},
+        **({"map_grid": state["map.grid"]} if "map.grid" in state else {}),
         trajectory=odom.trajectory(),
         # the layout the map is only valid under: entries are placed by
         # probe distance and by the hash function itself
@@ -44,8 +45,9 @@ def load_state(path: str, odom: SageICP) -> SageICP:
     """Restore a checkpoint into an odometry object built with the same
     config. Raises ValueError, loading nothing, on a file whose map this
     config could not read: another capacity, float block storage, another
-    hash layout or probe depth, missing metadata, or a dense-grid index
-    (this package has none)."""
+    hash layout or probe depth, missing metadata, a dense_grid flag other
+    than the config's, or a dense index (map_grid) that the config does
+    not keep, lacks, or that is not (GRID_SIZE, 2) int32."""
     with np.load(path) as z:
         if "probe_depth" not in z or "dense_grid" not in z:
             raise ValueError("checkpoint lacks probe_depth/dense_grid metadata; re-save it")
@@ -61,9 +63,18 @@ def load_state(path: str, odom: SageICP) -> SageICP:
         if int(z["probe_depth"]) != odom.config.probe_depth:
             raise ValueError(f"checkpoint probe_depth {int(z['probe_depth'])} != config "
                              f"{odom.config.probe_depth}: deeper entries would be unfindable")
-        if bool(z["dense_grid"]) or "map_grid" in z:
-            raise ValueError("checkpoint holds a dense-grid map, which this package does not implement")
+        if bool(z["dense_grid"]) != odom.config.dense_grid:
+            raise ValueError(f"checkpoint dense_grid flag {bool(z['dense_grid'])} does not match the loading "
+                             f"config's {odom.config.dense_grid}")
+        grid = z["map_grid"] if "map_grid" in z else None  # each read of an npz key decompresses it
+        if (grid is not None) != odom.config.dense_grid:
+            raise ValueError("checkpoint map_grid " + ("present under a config without dense_grid"
+                                                       if grid is not None else "missing under dense_grid"))
+        if grid is not None and (grid.shape != (hashmap.GRID_SIZE, 2) or grid.dtype != np.int32):
+            raise ValueError(f"checkpoint map_grid is {grid.dtype} {grid.shape}, not int32 {(hashmap.GRID_SIZE, 2)}")
         state = {field: z[key] for key, field in NPZ_FIELDS.items() if key in z}
+        if grid is not None:
+            state["map.grid"] = grid
         state.setdefault("reject_streak", np.int32(0))  # files without the guard streak
         trajectory = list(z["trajectory"])
     odom.reinitialize()

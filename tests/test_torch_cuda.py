@@ -291,19 +291,27 @@ def gn_args(card, K, P, R=389, dead_from=None, seed=5):
 
 
 def device_kernels(fn):
-    """Names of the device kernels that fn() runs (torch.profiler). A fill
-    kernel opens the window: the profiler may miss a window's first
-    kernel."""
+    """Names of the device kernels that fn() runs (torch.profiler), the
+    longest list of three profiled calls. The profiler can drop a
+    kernel's record (on the H100: a window's first kernel, and now and
+    then another), never add one, so the longest list is the count.
+    Fill kernels open each window; they fill with ones, which is always a
+    kernel (a zero fill may be a memset, and then fn()'s first kernel is
+    the one dropped)."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.zeros(1, device="cuda")
+    seen = []
+    for _ in range(3):
         torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return [n for n in names if "FillFunctor" not in n]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                torch.ones(1, device="cuda")
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen.append([n for n in names if "FillFunctor" not in n])
+    return max(seen, key=len)
 
 
 @pytest.mark.cuda
@@ -492,6 +500,26 @@ def test_turn_stop_reverse_on_card(card, small_city):
     est, _, _ = drive_on_card(golden_config(), small_city, gt)
     assert ate(est, gt) < 0.30
     assert np.linalg.norm(est[25][:3, 3] - est[24][:3, 3]) < 0.10
+
+
+@pytest.mark.cuda
+def test_dense_grid_maneuver_equals_grid_off_on_card(card, small_city):
+    """The turn-stop-reverse maneuver with dense_grid on and off: the same
+    trajectory bit for bit and the same map slot for slot, and every live
+    slot's grid cell holds that slot and its checksum, no other cell a
+    slot."""
+    gt = synthetic.make_maneuver_trajectory(straight=8, turn=15, stop=3, reverse=6, step=0.75)
+    est_on, _, on = drive_on_card(golden_config(dense_grid=True), small_city, gt)
+    est_off, _, off = drive_on_card(golden_config(), small_city, gt)
+    np.testing.assert_array_equal(est_on, est_off)
+    for name in ("keys", "counts", "points", "first_pts"):
+        assert torch.equal(getattr(on.state.map, name), getattr(off.state.map, name)), name
+    m = on.state.map
+    live = torch.nonzero(m.counts > 0)[:, 0]
+    cells = thm.grid_index(m.keys[live]).long()
+    assert torch.unique(cells).numel() == live.numel()
+    assert torch.equal(m.grid[cells], torch.stack([live.to(torch.int32), thm.grid_hi_code(m.keys[live])], -1))
+    assert int((m.grid[:, 0] >= 0).sum()) == live.numel()
 
 
 @pytest.mark.cuda
@@ -785,7 +813,7 @@ def test_nccl_world_of_one_equals_sage_icp_on_card(card, tmp_path):
         dist.destroy_process_group()
     np.testing.assert_array_equal(sharded.trajectory(), single.trajectory())
     for a, b in zip(sharded.state.map, single.state.map):
-        assert torch.equal(a, b)
+        assert (a is None and b is None) or torch.equal(a, b)
     iters = sum(single.icp_iters) + sum(sharded.icp_iters)
     assert cuda_lib.LAUNCHES["fused_gn_iteration"] == iters and cuda_lib.LAUNCHES["apply_policy"] == 6
 

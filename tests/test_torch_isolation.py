@@ -1,9 +1,8 @@
 """The PyTorch port stands alone: it never imports JAX or the JAX package
-(its CLI included), it never falls back to the CPU on its own, and it
-refuses the setting it does not implement (dense_grid) instead of
-ignoring it."""
+(its CLI included) and it never falls back to the CPU on its own. Its
+settings are the JAX package's; the dense-grid bounds are held against
+JAX's in tests/test_torch_dense_grid.py."""
 
-import dataclasses
 import pathlib
 import re
 import subprocess
@@ -72,15 +71,6 @@ def test_sage_icp_without_device_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         SageICP("city")
     assert SageICP("city", device="cpu").device.type == "cpu"
-
-
-@pytest.mark.parametrize("setting", ["dense_grid"])
-def test_unported_settings_are_refused(setting):
-    from sage_icp_tpu_torch.models.pipeline import PRESETS, SageICP
-
-    config = dataclasses.replace(PRESETS["synthetic"], **{setting: True})
-    with pytest.raises(NotImplementedError, match=setting):
-        SageICP(config, device="cpu")
 
 
 def test_kitti_preset_runs_its_dynamic_filter():

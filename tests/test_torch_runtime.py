@@ -339,8 +339,12 @@ def rewrite(path, out, **changes):
 
 
 @pytest.mark.parametrize("mismatch", ["capacity", "probe_depth", "hash_layout", "dense_grid", "map_grid",
-                                      "no_metadata", "float_blocks"])
+                                      "no_metadata", "float_blocks", "map_grid_shape", "map_grid_missing"])
 def test_checkpoint_refuses_mismatched_layouts(tmp_path, port_run, mismatch):
+    """Every layout the loading config cannot read is refused, nothing
+    loaded. The grid cases: a dense_grid flag or a map_grid array under a
+    config without the grid; under a grid config, a map_grid of the wrong
+    shape, or none."""
     odom, _ = port_run
     path = str(tmp_path / "state.npz")
     t_ckpt.save_state(path, odom)
@@ -353,8 +357,11 @@ def test_checkpoint_refuses_mismatched_layouts(tmp_path, port_run, mismatch):
         map_grid=dict(map_grid=np.zeros((8, 8, 8), np.int32)),
         no_metadata=dict(probe_depth=None, dense_grid=None),
         float_blocks=dict(map_points=np.zeros((8192, 4, 40), np.float32)),
+        map_grid_shape=dict(dense_grid=np.asarray(True), map_grid=np.full((8, 2), -1, np.int32)),
+        map_grid_missing=dict(dense_grid=np.asarray(True)),
     )[mismatch]
-    fresh = tpl.SageICP(port_tiny(), device="cpu")
+    grid_config = mismatch in ("map_grid_shape", "map_grid_missing")
+    fresh = tpl.SageICP(dataclasses.replace(port_tiny(), dense_grid=grid_config), device="cpu")
     before = state_to_numpy(fresh.state)
     with pytest.raises(ValueError):
         t_ckpt.load_state(rewrite(path, out, **changes), fresh)
