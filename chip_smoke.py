@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py [--kernels-only] [--profile]
     python3 chip_smoke.py --root DIR
+    python3 bench_torch.py        (the bench alone; phase 13 runs it in process)
 
 With --root, only the kernel times of the port checked out at DIR (the
 parent commit unpacked with `git archive`, say) are taken, at phase 3's
@@ -96,7 +97,15 @@ Phases, each fatal on failure:
      script's own copy) with dense_grid off and on: each inside
      test_long_horizon_city_drive's bounds (relative translation < 0.12 %,
      rotation < 0.06 deg/m, ATE < 0.12 m, final error < 0.4 m, no drop),
-     the two equal bit for bit, maps slot for slot, the grid consistent.
+     the two equal bit for bit, maps slot for slot, the grid consistent;
+ 13. the bench: bench_torch.main() in process at its defaults (both
+     phases, int16 upload, overlap on), its scans those of phases 4 and 6
+     followed by the rest of bench.py's renders: every key of bench.py's
+     JSON line, every guard passed (no drop over all frames, no landmark
+     cell dropped), ATE < 0.05 m in both phases, GN launched once per ICP
+     iteration, the policy once a frame and the radius count once a kitti
+     frame; then the same with BENCH_OVERLAP=0, whose trajectories equal
+     the overlapped run's bit for bit. Prints the launches and scans/s.
 The line before the device line is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits non-zero and prints no result.
@@ -108,6 +117,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -586,8 +596,9 @@ def register(odom, scans, warmup: int, n: int):
 
 def drive(name: str, odom, density: float, warmup: int, frames: int, extra: int):
     """Phases 4 and 6: `odom` over the city world at `density` along
-    make_trajectory, scans from render_scan at n_target 120000. Returns
-    (scans, launches, gt); `extra` more scans along the trajectory follow
+    make_trajectory, scans from render_scan at n_target 120000 (bench.py's
+    first scans). Returns (scans, launches, gt, the render generator for
+    the scans that follow); `extra` more scans along the trajectory follow
     the path's."""
     from sage_icp_tpu_torch.utils import synthetic
 
@@ -617,7 +628,7 @@ def drive(name: str, odom, density: float, warmup: int, frames: int, extra: int)
           f"{1e3 * elapsed / frames:.3f} ms/frame; ICP iterations {odom.icp_iters}; "
           f"ATE {ate:.5f} m; live voxels {int((odom.state.map.counts > 0).sum())}; "
           f"launches {launches}", flush=True)
-    return scans, launches, gt[:n]
+    return scans, launches, gt[:n], rng
 
 
 def single_pass(odom, scan):
@@ -1314,6 +1325,71 @@ def long_horizon_phase() -> None:
           "final_err_m 0.0797, overflow_total 0", flush=True)
 
 
+def bench_py_keys() -> list:
+    """The keys of bench.py's JSON line with its kitti phase, in order,
+    read from its source."""
+    with open(os.path.join(ROOT, "bench.py")) as f:
+        src = f.read()
+    literal = re.search(r"^    out = \{(.*?)^    \}", src, re.S | re.M).group(1)
+    return re.findall(r'^\s*"(\w+)":', literal, re.M) + re.findall(r'out\["(\w+)"\] =', src)
+
+
+def bench_phase(rendered: dict) -> None:
+    """Phase 13: bench_torch.main() at its defaults, then with
+    BENCH_OVERLAP=0, on the same scans. rendered: {phase: (the scans
+    phases 4 and 6 rendered, their render generator)}; the rest of each
+    phase's scans are rendered on."""
+    import bench_torch
+    from sage_icp_tpu_torch.models.pipeline import PRESETS
+    from sage_icp_tpu_torch.ops import cuda_lib
+    from sage_icp_tpu_torch.utils import synthetic
+
+    saved = {k: os.environ.pop(k) for k in list(os.environ) if k.startswith("BENCH_")}
+    try:
+        s = bench_torch.settings()
+        t0 = time.perf_counter()
+        scans = {}
+        for name, cfg, density, frames in (("city", PRESETS[s["preset"]], s["density"], s["frames"]),
+                                           ("kitti", PRESETS["kitti"], s["kitti_density"], s["kitti_frames"])):
+            done, rng = rendered[name]
+            gt = synthetic.make_trajectory(bench_torch.phase_length(s["warmup"], frames, s["chunk"]), step=1.0)
+            world = synthetic.build_city_world(seed=0, size=420.0, density=density)
+            scans[name] = bench_torch.render_scans(world, cfg, gt, s["points"], rng, done)
+        print(f"bench: {sum(len(v) for v in scans.values())} scans, {sum(len(d) for d, _ in rendered.values())} "
+              f"of them from phases 4 and 6, the rest rendered in {time.perf_counter() - t0:.1f} s", flush=True)
+        runs = {}
+        for overlap in ("1", "0"):
+            os.environ["BENCH_OVERLAP"] = overlap
+            cuda_lib.reset_launches()
+            try:
+                out, phases = bench_torch.main(scans)
+            except bench_torch.GuardError as e:
+                fail(f"bench_torch.py, BENCH_OVERLAP={overlap}: {e}")
+            launches = dict(cuda_lib.LAUNCHES)
+            label = f"bench_torch.py, BENCH_OVERLAP={overlap}"
+            if list(out) != bench_py_keys():
+                fail(f"{label}: JSON keys {list(out)}, bench.py's {bench_py_keys()}")
+            for name, res in phases.items():
+                if not res.ate_m < 0.05:
+                    fail(f"{label}: {name} phase ATE {res.ate_m} m")
+            city, kitti = phases["city"], phases["kitti"]
+            expect_launches(label, launches, int(city.iterations.sum() + kitti.iterations.sum()),
+                            city.frames + kitti.frames, kitti.frames)
+            print(f"{label}: launches {launches} over {city.frames} city and {kitti.frames} kitti frames; "
+                  f"city {city.scans_per_sec} scans/s, kitti {kitti.scans_per_sec} scans/s", flush=True)
+            runs[overlap] = phases
+        for name in ("city", "kitti"):
+            a, b = runs["1"][name].trajectory, runs["0"][name].trajectory
+            if not np.array_equal(a, b):
+                fail(f"bench {name} phase: overlap on and off differ: max |diff| {np.abs(a - b).max()}")
+        print(f"bench: overlap on and off give the same trajectories bit for bit in both phases; phase 13 took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        for k in [k for k in os.environ if k.startswith("BENCH_")]:
+            del os.environ[k]
+        os.environ.update(saved)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true", help="stop after phase 3")
@@ -1356,13 +1432,13 @@ def main() -> int:
     n = WARMUP + FRAMES
     extra = 5 if args.profile else 0
     city = SageICP("city")
-    city_scans, _, city_gt = drive("city", city, 0.7, WARMUP, FRAMES, extra)
+    city_scans, _, city_gt, city_rng = drive("city", city, 0.7, WARMUP, FRAMES, extra)
     city_traj, city_map = city.trajectory(), city.state.map
     nn_launches = single_pass(city, city_scans[n - 1])
     kitti = SageICP()  # the default preset
     if kitti.config != PRESETS["kitti"] or not kitti.config.dynamic_vehicle_filter:
         fail("SageICP() is not the kitti preset with its dynamic filter")
-    kitti_scans, launches, kitti_gt = drive("kitti", kitti, 1.3, WARMUP, FRAMES, extra)
+    kitti_scans, launches, kitti_gt, kitti_rng = drive("kitti", kitti, 1.3, WARMUP, FRAMES, extra)
     kitti_traj, kitti_map = kitti.trajectory(), kitti.state.map
     sort_launches = kitti_checks(kitti, kitti_scans[n - 1])
     deskew_odom, skewed, tss, deskew_kernel_ms = runtime_phase(kitti_scans, dev)
@@ -1370,6 +1446,7 @@ def main() -> int:
     dense_grid_phase("kitti", kitti_scans, kitti_traj, kitti_map, kitti_gt, kitti_scans[n:] if args.profile else None)
     dense_grid_phase("city", city_scans, city_traj, city_map, city_gt, city_scans[n:] if args.profile else None)
     long_horizon_phase()
+    bench_phase({"city": (city_scans, city_rng), "kitti": (kitti_scans, kitti_rng)})
     if args.profile:
         profile("city", city, city_scans[n:])
         profile("kitti", kitti, kitti_scans[n:])

@@ -263,9 +263,9 @@ def prepare_icp_inputs(state: OdomState, points, valid, timestamps, config: Sage
         points = torch.where(state.num_poses > 2, deskewed, points)
     cropped, crop_valid = scan_ops.preprocess(
         points, valid, config.max_range, config.min_range, config.label_max_range)
-    dyn_overflow = _i32(0, dev)
+    dyn_overflow = lmk_dropped = _i32(0, dev)
     if config.dynamic_vehicle_filter:
-        cropped, crop_valid, dyn_overflow = dyn.filter_dynamic_vehicles(cropped, crop_valid, config)
+        cropped, crop_valid, dyn_overflow, lmk_dropped = dyn.filter_dynamic_vehicles(cropped, crop_valid, config)
     (source, source_valid), (frame_ds, frame_valid), ds_trunc = voxelize(cropped, crop_valid, config)
 
     motion = scan_ops.norm3((geo.se3_inverse(state.first_pose) @ state.last_pose)[:3, 3])
@@ -289,7 +289,7 @@ def prepare_icp_inputs(state: OdomState, points, valid, timestamps, config: Sage
             state.map, scan_ops.trunc_div(initial_guess[:3, 3], config.voxel_size_map), config.probe_depth)
     return dict(source=source, source_valid=source_valid, frame_ds=frame_ds, frame_valid=frame_valid,
                 sigma=sigma, thr=thr, initial_guess=initial_guess, tables=tables, ds_trunc=ds_trunc,
-                dyn_overflow=dyn_overflow)
+                dyn_overflow=dyn_overflow, lmk_dropped=lmk_dropped)
 
 
 def run_icp(map_state, prep: dict, config: SageConfig, mesh=None) -> reg.IcpResult:
@@ -319,8 +319,11 @@ def odometry_step(state: OdomState, points, valid, timestamps, config: SageConfi
     """One odometry step. points (scan_capacity, 4) sensor-frame
     xyz+label; valid (scan_capacity,); timestamps (scan_capacity,) in
     [0, 1], read only with config.deskew. Returns (new_state, pose (4, 4),
-    aux). The ICP loop waits for the device at its start and once per
-    iteration (ops/registration.py).
+    aux, landmark_cells_dropped): the last, 0-dim int32, is the dynamic
+    filter's landmark cells beyond its capacity, a drop the JAX package
+    does not count (kept out of StepAux, whose fields are JAX's). The ICP
+    loop waits for the device at its start and once per iteration
+    (ops/registration.py).
 
     mesh (parallel.sharding.Mesh): every rank steps the whole scan; the
     GN rows and, with shard_insert, the insert's policy rows are split
@@ -384,7 +387,7 @@ def odometry_step(state: OdomState, points, valid, timestamps, config: SageConfi
         icp_rejected=(pose_ok & ~healthy).to(torch.int32),
         icp_forced=forced.to(torch.int32),
     )
-    return new_state, new_pose, aux
+    return new_state, new_pose, aux, prep["lmk_dropped"]
 
 
 # int16 upload: xyz in units of 2^-8 m; an invalid row holds 32767 in
@@ -439,17 +442,18 @@ def chunk_step(state: OdomState, scans: torch.Tensor, config: SageConfig, mesh=N
     """Offline mode: (state, scans (W, cap, 4|5) on the device) -> (state',
     poses (W, 4, 4) on the device, per-frame ICP iterations (list of W
     ints), aux aggregated over the chunk: drop counters summed, occupancy
-    maxed, sigma/iterations/correspondences of the last frame). The W
-    steps are the single-frame steps in order, on one upload (sharded
-    on `mesh` when given)."""
-    poses, iters, agg = [], [], None
+    maxed, sigma/iterations/correspondences of the last frame), landmark
+    cells dropped over the chunk. The W steps are the single-frame steps
+    in order, on one upload (sharded on `mesh` when given)."""
+    poses, iters, agg, lmk_dropped = [], [], None, 0
     for pts in scans:
         p, valid, ts = _split_packed(pts)
-        state, pose, aux = odometry_step(state, p, valid, ts, config, mesh)
+        state, pose, aux, lmk = odometry_step(state, p, valid, ts, config, mesh)
         poses.append(pose)
         iters.append(int(aux.icp_iterations))
         agg = _fold_aux(agg, aux)
-    return state, torch.stack(poses), iters, agg
+        lmk_dropped = lmk_dropped + lmk
+    return state, torch.stack(poses), iters, agg, lmk_dropped
 
 
 def resolve_device(device=None) -> torch.device:
@@ -483,6 +487,7 @@ class SageICP:
         self.icp_iters: list[int] = []
         self._last_aux = None
         self._totals = None
+        self._lmk_dropped = 0
 
     def pad_chunk(self, scans: list, timestamps: list | None = None) -> np.ndarray:
         """(W, scan_capacity, 4|5) packed host buffer: float32 rows padded
@@ -509,9 +514,10 @@ class SageICP:
                 buf[i, :n] = rows
         return buf
 
-    def _record(self, aux: StepAux, iters: list[int]) -> None:
+    def _record(self, aux: StepAux, iters: list[int], lmk_dropped) -> None:
         self._last_aux = aux
         self._totals = _fold_aux(self._totals, aux)
+        self._lmk_dropped = self._lmk_dropped + lmk_dropped
         self.icp_iters.extend(iters)
 
     def register_frame(self, points: np.ndarray, timestamps: np.ndarray | None = None,
@@ -523,8 +529,8 @@ class SageICP:
         buf = self.pad_chunk([points], None if timestamps is None else [timestamps])[0]
         t0 = time.perf_counter()
         pts, valid, ts = _split_packed(torch.from_numpy(buf).to(self.device))
-        self.state, pose, aux = odometry_step(self.state, pts, valid, ts, self.config, self.mesh)
-        self._record(aux, [int(aux.icp_iterations)])
+        self.state, pose, aux, lmk = odometry_step(self.state, pts, valid, ts, self.config, self.mesh)
+        self._record(aux, [int(aux.icp_iterations)], lmk)
         if block:
             pose = pose.cpu().numpy()
         self.timings.append(time.perf_counter() - t0)
@@ -534,13 +540,15 @@ class SageICP:
     def register_chunk(self, scans, timestamps: list | None = None) -> torch.Tensor:
         """Offline mode: W frames on one upload (chunk_step). scans: a list
         of (n, 4) arrays or a padded (W, cap, 4|5) buffer from pad_chunk.
+        A tensor already on the device is stepped as it is, not copied
+        again (bench_torch.py stages the next chunk's upload ahead).
         Appends the (W, 4, 4) device poses to the trajectory and returns
         them without waiting."""
         if isinstance(scans, list):
             scans = self.pad_chunk(scans, timestamps)
         dev_scans = torch.as_tensor(scans).to(self.device)
-        self.state, poses, iters, aux = chunk_step(self.state, dev_scans, self.config, self.mesh)
-        self._record(aux, iters)
+        self.state, poses, iters, aux, lmk = chunk_step(self.state, dev_scans, self.config, self.mesh)
+        self._record(aux, iters, lmk)
         self.poses.append(poses)
         return poses
 
@@ -558,6 +566,12 @@ class SageICP:
         counters summed, occupancy maxed, sigma/iterations/correspondences
         of the last frame."""
         return StepAux(*[np.asarray(a.cpu()) for a in self._totals])
+
+    def landmark_cells_dropped(self) -> int:
+        """Landmark cells the dynamic filter dropped beyond its capacity,
+        summed over every frame since the last reinitialize (a silent drop
+        of the JAX package, counted here outside StepAux)."""
+        return int(self._lmk_dropped)
 
     def trajectory(self) -> np.ndarray:
         """(N, 4, 4) poses; the poses held on the device come over in one

@@ -18,7 +18,9 @@ zeroes them beyond), so the grid has a static extent. Vehicle points
 never clustered (beyond a capacity, or outside the grid's 16 m z span)
 pass through and are counted in the overflow, as are clustered points
 whose query slot in their cell row overflowed. Landmark cells beyond
-_LMK_VOXEL_CAP are dropped without a counter, as in the JAX package.
+_LMK_VOXEL_CAP are dropped, as in the JAX package, which counts them
+nowhere; the port returns their number beside the overflow (the
+pipeline keeps it out of StepAux, whose fields are JAX's).
 
 The min-diffusion pools cell ids in float32, exact while the grid holds
 fewer than 2^24 cells: label_max_range up to 179 m (every preset uses
@@ -128,8 +130,10 @@ def _window(xyz, head_pos, width: int):
 
 def filter_dynamic_vehicles(points, valid, config):
     """points (N, 4) cropped scan; valid (N,). Returns (points', valid',
-    overflow) with moving-vehicle points masked out and the pass-through
-    overflow count, 0-dim int32."""
+    overflow, landmark_cells_dropped) with moving-vehicle points masked
+    out, the pass-through overflow count and the number of distinct
+    landmark cells beyond _LMK_VOXEL_CAP, whose points no radius count
+    sees; both 0-dim int32."""
     dev = points.device
     n = points.shape[0]
     nx = _grid_nx(float(config.label_max_range))
@@ -145,6 +149,7 @@ def filter_dynamic_vehicles(points, valid, config):
     m = lk.shape[0]
     posm = torch.arange(m, dtype=torch.int32, device=dev)
     lu_rank = torch.cumsum(l_head, 0) - 1
+    lmk_dropped = torch.clamp(l_head.sum(dtype=torch.int32) - UL, min=0)
     l_head_pos = _scatter_set(UL, m, torch.where(l_head & (lu_rank < UL), lu_rank, UL), posm)
     l_seg_len = _segment_len(UL, torch.where(llive & (lu_rank < UL), lu_rank, UL))
     kidx = torch.arange(K, device=dev)
@@ -243,4 +248,4 @@ def filter_dynamic_vehicles(points, valid, config):
     # overflow = never-clustered vehicle points plus clustered points whose
     # query slot overflowed P (their count was not added to the cluster)
     overflow = passthrough.sum(dtype=torch.int32) + (vlive & ~in_slot).sum(dtype=torch.int32)
-    return pts, new_valid, overflow
+    return pts, new_valid, overflow, lmk_dropped

@@ -98,7 +98,8 @@ def pad_config_for_mesh(config: pl.SageConfig, mesh: Mesh) -> pl.SageConfig:
 
 
 def make_sharded_step(config: pl.SageConfig, mesh: Mesh, shard_insert: bool = True):
-    """step(state, points, valid, timestamps) -> (state, pose, aux) with
+    """step(state, points, valid, timestamps) -> (state, pose, aux,
+    landmark_cells_dropped) (pipeline.odometry_step's) with
     the GN rows split across the mesh and, with shard_insert, the policy
     rows too (False keeps the insert replicated on every rank)."""
     return functools.partial(pl.odometry_step, config=config, mesh=mesh, shard_insert=shard_insert)

@@ -174,7 +174,7 @@ def test_carried_state_deskew_step_matches_jax(skewed_drive, jax_deskew_run):
     cfg = port(small_config(deskew=True))
     buf = tpl.SageICP(cfg, device="cpu").pad_chunk([scans[3]], [tss[3]])[0]
     pts, valid, ts = tpl._split_packed(torch.from_numpy(buf))
-    state, pose, aux = tpl.odometry_step(state_from_numpy(states[2], "cpu"), pts, valid, ts, cfg)
+    state, pose, aux, _ = tpl.odometry_step(state_from_numpy(states[2], "cpu"), pts, valid, ts, cfg)
     assert int(states[2]["num_poses"]) == 3
     np.testing.assert_allclose(pose.numpy(), np.asarray(odom.poses[-1]), atol=1e-4)
     got, want = state_to_numpy(state), states[3]

@@ -157,12 +157,14 @@ def test_filter_refuses_grid_beyond_float32_ids():
 
 
 def run_both(buf, valid):
+    """The filter's keep mask, points and overflow against JAX's; returns
+    (keep mask, overflow, landmark cells dropped: the port's own count)."""
     jp, jv, jo = _jax_filter(jnp.asarray(buf), jnp.asarray(valid))
-    tp, tv, to = tdyn.filter_dynamic_vehicles(t(buf), t(valid), tpl.PRESETS["kitti"])
+    tp, tv, to, tl = tdyn.filter_dynamic_vehicles(t(buf), t(valid), tpl.PRESETS["kitti"])
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
     assert int(to) == int(jo)
-    return tv.numpy(), int(to)
+    return tv.numpy(), int(to), int(tl)
 
 
 def preprocessed(scan, cfg):
@@ -174,24 +176,52 @@ def preprocessed(scan, cfg):
 def test_filter_matches_jax_parked_and_moving():
     """The JAX suite's decision: the parked car kept, the moving removed."""
     buf, valid = parked_moving_scan(CAP)
-    keep, overflow = run_both(buf, valid)
+    keep, overflow, lmk_dropped = run_both(buf, valid)
     labs, xs = buf[:, 3].astype(int), buf[:, 0]
     assert keep[(labs == 10) & (xs < 20) & valid].mean() > 0.9
     assert keep[(labs == 10) & (xs > 20) & valid].mean() < 0.1
-    assert keep[(labs != 10) & valid].all() and overflow == 0
+    assert keep[(labs != 10) & valid].all() and overflow == 0 and lmk_dropped == 0
 
 
 def test_filter_matches_jax_city_scan(city_scan):
     pts, ok = preprocessed(city_scan, tpl.PRESETS["kitti"])
-    keep, overflow = run_both(pts, ok)
+    keep, overflow, lmk_dropped = run_both(pts, ok)
     vehicle = ok & np.isin(pts[:, 3].astype(int), VEHICLE)
-    assert 0 < (vehicle & keep).sum() < vehicle.sum() and overflow == 0
+    assert 0 < (vehicle & keep).sum() < vehicle.sum() and overflow == 0 and lmk_dropped == 0
 
 
 def test_filter_matches_jax_slot_overflow():
     buf, valid = crowded_cell_scan(CAP)
-    _, overflow = run_both(buf, valid)
+    _, overflow, _ = run_both(buf, valid)
     assert overflow >= 12 + 5
+
+
+def landmark_lattice_scan(cap=CAP, side=70):
+    """side x side landmark points (parking 44 and sidewalk 48), one in
+    each 0.5 m cell of x, y in [0, 0.5 side), more distinct cells than the
+    filter's _LMK_VOXEL_CAP; a low parked car over the first columns of
+    cells and one over the last columns, which sort past the capacity."""
+    rng = np.random.default_rng(5)
+    i, j = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
+    lot = np.stack([0.25 + 0.5 * i.ravel(), 0.25 + 0.5 * j.ravel(), np.full(i.size, 0.1),
+                    np.where((i + j).ravel() % 2 == 0, 44.0, 48.0)], 1)
+    u = lambda lo, hi, n: rng.uniform(lo, hi, n)
+    cars = [np.stack([u(x0, x0 + 2.0, 80), u(5.0, 6.5, 80), u(0.15, 0.45, 80), np.full(80, 10.0)], 1)
+            for x0 in (5.0, 31.0)]
+    return pad_scan(np.concatenate([lot, *cars]).astype(np.float32), cap)
+
+
+def test_filter_counts_landmark_cells_beyond_capacity():
+    """4,900 landmark cells: the 804 past the 4,096 the filter stores are
+    dropped as in JAX (the keep mask equal to JAX's, so the car over them
+    finds no landmark and is removed) and counted by the port."""
+    buf, valid = landmark_lattice_scan()
+    keep, overflow, lmk_dropped = run_both(buf, valid)
+    assert lmk_dropped == 70 * 70 - tdyn._LMK_VOXEL_CAP == 804
+    car, xs = (buf[:, 3] == 10) & valid, buf[:, 0]
+    assert keep[car & (xs < 20)].mean() > 0.9
+    assert not keep[car & (xs > 20)].any()
+    assert overflow == 0
 
 
 def test_prepare_icp_inputs_with_filter_matches_jax(city_scan):

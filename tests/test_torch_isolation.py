@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it never imports JAX or the JAX package
-(its CLI included) and it never falls back to the CPU on its own. Its
+(its CLI and bench_torch.py included) and it never falls back to the CPU
+on its own. Its
 settings are the JAX package's; the dense-grid bounds are held against
 JAX's in tests/test_torch_dense_grid.py."""
 
@@ -22,7 +23,7 @@ MODULES = sorted(
 def test_port_modules_and_chip_smoke_import_without_jax():
     code = (
         "import importlib, sys\n"
-        f"for m in {MODULES + ['chip_smoke']!r}:\n"
+        f"for m in {MODULES + ['chip_smoke', 'bench_torch']!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'sage_icp_tpu.'))"
         " or m == 'sage_icp_tpu')\n"
@@ -57,11 +58,28 @@ def test_cli_help_runs_without_jax():
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PACKAGE.rglob("*.py"))
-                         + ["chip_smoke.py"])
+                         + ["chip_smoke.py", "bench_torch.py"])
 def test_source_has_no_jax_import(path):
     src = (ROOT / path).read_text()
     assert not re.search(r"^\s*(import|from)\s+jax\b", src, re.M)
     assert not re.search(r"^\s*(import|from)\s+sage_icp_tpu(\.|\s)", src, re.M)
+
+
+def test_bench_without_a_card_stops_with_an_error():
+    """`python3 bench_torch.py` with no card and no BENCH_DEVICE=cpu exits
+    non-zero and prints no result, with jax and the JAX package made
+    unimportable."""
+    code = (
+        "import os, runpy, sys, torch\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['sage_icp_tpu'] = None\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "os.environ.pop('BENCH_DEVICE', None)\n"
+        "runpy.run_path('bench_torch.py', run_name='__main__')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and out.stdout == ""
 
 
 def test_sage_icp_without_device_needs_a_card(monkeypatch):

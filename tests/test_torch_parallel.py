@@ -180,7 +180,7 @@ def test_sharded_step_at_one_rank_equals_sage_icp(tiny_scans, port_single):
     buf = odom.pad_chunk(tiny_scans)
     for i in range(len(tiny_scans)):
         pts, valid, ts = tpl._split_packed(torch.from_numpy(buf[i]))
-        state, pose, _ = step(state, pts, valid, ts)
+        state, pose, _, _ = step(state, pts, valid, ts)
         np.testing.assert_array_equal(pose.numpy(), port_single.trajectory()[i])
 
 
@@ -207,7 +207,7 @@ def test_sharded_step_routes_rows_to_the_kernels(tiny_scans, monkeypatch, shard_
     buf = tpl.SageICP(cfg, device="cpu").pad_chunk(tiny_scans[:2])
     state = tpl.init_state(cfg, "cpu")
     for frame in buf:
-        state, _, _ = step(state, *tpl._split_packed(torch.from_numpy(frame)))
+        state, _, _, _ = step(state, *tpl._split_packed(torch.from_numpy(frame)))
     assert set(seen["fused_gn_iteration"]) == {320}
     assert seen["apply_policy"] == [1024 if shard_insert else 2048] * 2
 

@@ -59,7 +59,7 @@ def step_port(state_np, scan, cfg):
     buf = np.full((cfg.scan_capacity, 4), 1.0e7, np.float32)
     buf[: len(scan)] = scan
     pts = torch.from_numpy(buf)
-    return tpl.odometry_step(state, pts, pts[:, 0] < 1.0e6, torch.zeros(len(pts)), cfg)
+    return tpl.odometry_step(state, pts, pts[:, 0] < 1.0e6, torch.zeros(len(pts)), cfg)[:3]
 
 
 def test_state_numpy_round_trip(jax_run):
