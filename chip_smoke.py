@@ -31,8 +31,14 @@ Phases, each fatal on failure:
      20);
   4. the city path: SageICP("city") over the Manhattan city world at
      density 0.7, 10 warm-up and 30 timed frames; no silent drop over all
-     frames, ATE < 0.05 m, and launch counts showing that every ICP
-     iteration ran the GN kernel and every insert the policy kernel;
+     frames, ATE < 0.05 m, and launch counts showing that every slot of
+     every block of ICP iterations ran the GN and ICP step kernels (a
+     block is ops/registration.py's BLOCK_ITERATIONS slots; at least one
+     a frame, enough for its iterations) and every insert the policy
+     kernel. The kernels count their own launches on the card
+     (ops/cuda_lib.py), so a launch replayed from a CUDA graph is counted
+     in the run that replays it. SageICP on the card is the captured step (CUDA graphs,
+     models/pipeline.py::DeviceStep), so are phases 6-13 unless named;
   5. the single-pass search (get_correspondences_fast) on the final city
      map, through the semantic NN kernel, against the reference-shaped
      search;
@@ -71,13 +77,13 @@ Phases, each fatal on failure:
      init_distributed through a file:// rendezvous under build/, then
      ShardedSageICP() (the kitti preset) on phase 6's 40 scans with phase
      6's calls: its trajectory equal to phase 6's bit for bit, no drop, GN
-     launched once per ICP iteration, the policy and the radius count once
+     launched in every slot of every ICP block, the policy and the radius count once
      a frame; (b) two parallel.worker processes sharing the card over gloo
      (NCCL refuses two ranks on one device), each at the full kitti preset
      on the same 40 scans: the two trajectories equal bit for bit and the
      final maps slot for slot, each within 5e-3 m of phase 6's trajectory
      (test_sharded_maneuver_equivalence's bound), ATE < 0.05 m, no drop,
-     and per rank GN once per ICP iteration on 9,216 of the 18,432 rows,
+     and per rank GN in every slot of every ICP block on 9,216 of the 18,432 rows,
      the policy once a frame on 16,512 of the 33,024 rows, the radius count
      once a frame (replicated). Each rank's ms/frame is printed: two ranks
      share one card, so it is not a scaling figure. 10a also prints the
@@ -102,10 +108,26 @@ Phases, each fatal on failure:
      phases, int16 upload, overlap on), its scans those of phases 4 and 6
      followed by the rest of bench.py's renders: every key of bench.py's
      JSON line, every guard passed (no drop over all frames, no landmark
-     cell dropped), ATE < 0.05 m in both phases, GN launched once per ICP
-     iteration, the policy once a frame and the radius count once a kitti
-     frame; then the same with BENCH_OVERLAP=0, whose trajectories equal
-     the overlapped run's bit for bit. Prints the launches and scans/s.
+     cell dropped), ATE < 0.05 m in both phases, GN and the ICP step
+     launched in every slot of every block, the policy once a frame and
+     the radius count once a kitti frame; then the same with
+     BENCH_OVERLAP=0, and with SageICP's eager device step (graph=False),
+     whose trajectories equal the first run's bit for bit. Prints the
+     launches and scans/s;
+ 14. the captured step: on phase 4's, phase 6's, phase 9's (skewed, deskew
+     on) and phase 6's scans with dense_grid, SageICP with the graph step
+     and with the eager one over 24 frames by register_frame and 16 by
+     register_chunk (W = 8): poses, per-frame iterations, every aux read,
+     the totals and the final maps (grid included) bit for bit, the graph
+     run equal to the phase's own; the ICP step kernel bit for bit
+     against its plain version on 64 steps recorded from an eager kitti
+     drive, its time a step and a no-op step, and a stopped GN launch's;
+     the eager step under torch.cuda.set_sync_debug_mode("error") (kitti,
+     kitti + deskew, city; the one status read a block is a non-blocking
+     copy and an event, not a synchronising operation); per frame, graph
+     on and off, the host's launch and wait calls and the device busy
+     share (torch.profiler), the peak device memory of a fresh SageICP,
+     and ms/frame in six alternated runs each, at kitti and city.
 The line before the device line is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits non-zero and prints no result.
@@ -115,6 +137,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -138,7 +161,7 @@ SORT_NS = (2**16, 2**18)  # bitonic checks; the kitti scan's keys pad to 2^18
 GN_SUM_RTOL = 1e-4
 # the __global__ functions of sage_icp_tpu_torch/csrc, as the profiler names them
 PORT_KERNELS = ("semantic_nn_kernel", "gn_iteration_kernel", "retention_policy_kernel", "radius_count_kernel",
-                "bitonic_tile_kernel", "bitonic_global_kernel")
+                "icp_step_kernel", "bitonic_tile_kernel", "bitonic_global_kernel")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DRIVE_ROWS = os.path.join(ROOT, "build", "drive_rows.pt")
 MULTI_RANK_DIR = os.path.join(ROOT, "build", "multi_rank")
@@ -156,6 +179,18 @@ def fail(msg: str) -> None:
 
 
 SPACER_CYCLES = 20_000_000  # ~10 ms of torch.cuda._sleep: the host queues a batch meanwhile
+
+
+def max_abs_diff(got, want) -> float:
+    """The largest |a - b| over pairs of tensors, in float64: 0.0 when
+    every pair is equal (equal infinities and NaN against NaN count as
+    equal)."""
+    err = 0.0
+    for a, b in zip(got, want):
+        a, b = a.double(), b.double()
+        d = torch.where((a == b) | (a.isnan() & b.isnan()), 0.0, (a - b).abs())
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    return err
 
 
 def time_ms(fn, reps: int = 20, batches: int = 5) -> float:
@@ -232,8 +267,8 @@ def row_inputs(rng, dev, shape):
     q_world = np.concatenate([local + origin[:, None, :], qlab], axis=-1).reshape(R, 4 * P)
     used = (rng.random((R, P)) < 0.8).astype(np.int32)
     used[shape["live"]:] = 0  # rows past the demand: whole dead tiles
-    # the increment on the host, as the ICP loop passes it
-    T = geo.se3_exp(torch.tensor([0.02, -0.01, 0.005, 0.001, -0.002, 0.003]))
+    # the increment on the card, as the ICP loop's state holds it
+    T = geo.se3_exp(torch.tensor([0.02, -0.01, 0.005, 0.001, -0.002, 0.003])).to(dev)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     return dict(planes=planes + [cl], offs=offs, q_local=t(q_local), q0=t(q_world), origin=t(origin),
                 row_abs=t(row_abs), used=t(used), T=T)
@@ -313,7 +348,7 @@ def check_gn(d, shape, dev):
     cuda_lib.reset_launches()
     got = nn_kernels.fused_gn_iteration(*gn_args, tile_map=tile_map)
     again = nn_kernels.fused_gn_iteration(*gn_args, tile_map=tile_map)
-    if cuda_lib.LAUNCHES["fused_gn_iteration"] != 2 or not torch.equal(got, again):
+    if cuda_lib.launches()["fused_gn_iteration"] != 2 or not torch.equal(got, again):
         fail(f"fused_gn_iteration at {shape['name']} shapes: not one launch per call, or not deterministic")
     terms = nn_kernels.gn_terms(*gn_args, tile_map)
     want = terms.sum(dim=1)
@@ -357,7 +392,7 @@ def check_policy(rng, dev, shape):
     b_ms, b_by = bound(pol_bytes, total_seg * 10)
     return dict(
         route="cuda", source="sage_icp_tpu_torch/csrc/retention_policy.cu",
-        replaces="sage_icp_tpu/ops/pallas_insert.py:223", max_abs_err=0.0,
+        replaces="sage_icp_tpu/ops/pallas_insert.py:223", max_abs_err=max_abs_diff(got, want),
         ms=time_ms(lambda: policy_kernel.apply_policy(*pargs, basic=20)),
         plain_ms=time_ms(lambda: policy_kernel.apply_policy_plain(*pargs, basic=20)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
@@ -469,12 +504,13 @@ def check_kernels(dev):
     b_ms, b_by = bound(rc_bytes, used_slots * M * 9)
     rows["radius_count"] = dict(
         route="cuda", source="sage_icp_tpu_torch/csrc/radius_count.cu",
-        replaces="sage_icp_tpu/ops/pallas_nn.py:426", max_abs_err=0.0,
+        replaces="sage_icp_tpu/ops/pallas_nn.py:426", max_abs_err=max_abs_diff((got,), (want,)),
         ms=time_ms(lambda: nn_kernels.radius_count(*rargs)),
         plain_ms=time_ms(lambda: nn_kernels.radius_count_plain(*rargs)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     flags = (True, True, False)
+    sort_err = 0.0
     for n in SORT_NS:
         planes = sort_inputs(rng, n, dev)
         got = sort_kernel.bitonic_sort_planes(planes, 3, flags)
@@ -482,6 +518,7 @@ def check_kernels(dev):
         net = sort_kernel.bitonic_network_plain(planes, 3, flags)
         lib = sort_library(planes)
         torch.cuda.synchronize()
+        sort_err = max(sort_err, max_abs_diff(got, want))
         if not all(torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
                    for a, b, c, d in zip(got, want, lib, net)):
             fail(f"bitonic_sort_planes is not bit-exact against its plain versions at N = {n}")
@@ -503,7 +540,7 @@ def check_kernels(dev):
     b_ms, b_by = bound(len(planes) * n * 8, 0)
     rows["bitonic_sort_planes"] = dict(
         route="cuda", source="sage_icp_tpu_torch/csrc/bitonic_sort.cu",
-        replaces="sage_icp_tpu/ops/pallas_sort.py:133", max_abs_err=0.0,
+        replaces="sage_icp_tpu/ops/pallas_sort.py:133", max_abs_err=sort_err,
         ms=time_ms(lambda: sort_kernel.bitonic_sort_planes(planes, 3, flags)),
         plain_ms=time_ms(lambda: sort_kernel.bitonic_sort_planes_plain(planes, 3, flags)),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lambda: sort_library(planes)))
@@ -516,8 +553,8 @@ def time_tree(dev) -> dict:
     """--root: the kernels of the port at --root on phase 3's inputs (the
     same seeds and shapes), each timed with time_ms and kernel_ms. Only
     the wrapper interfaces that every slice of the port shares are called;
-    nothing is checked. T goes to the GN wrapper on the host, as the ICP
-    loop passes it."""
+    nothing is checked. T goes to the GN wrapper on the card (a tree whose
+    wrapper reads T on the host copies it over there)."""
     from sage_icp_tpu_torch.ops import nn_kernels, policy_kernel, sort_kernel
 
     times = {}
@@ -565,13 +602,38 @@ def ate_of(est, gt) -> float:
     return float(np.sqrt(np.mean(np.square(errs))))
 
 
-def expect_launches(name, launches, gn, frames, prepares) -> None:
-    """GN once per ICP iteration (`gn`), the policy once a frame (the
-    insert), the radius count once per prepare (the filter: once a frame,
-    and once more in each of IcpTimer's replays), the NN and sort kernels
-    not at all."""
-    expect = dict(fused_gn_iteration=gn, apply_policy=frames, radius_count=prepares, fused_semantic_nn=0,
-                  bitonic_sort_planes=0)
+def reset_counts() -> None:
+    """Every kernel's launch count to 0. The counts live on the card and
+    each kernel adds its own launches (ops/cuda_lib.py), those replayed
+    from a captured graph too."""
+    from sage_icp_tpu_torch.ops import cuda_lib
+
+    cuda_lib.reset_launches()
+
+
+def counts() -> dict:
+    """The kernel launches on the card since reset_counts."""
+    from sage_icp_tpu_torch.ops import cuda_lib
+
+    return cuda_lib.launches()
+
+
+def expect_launches(name, launches, iterations, frames, prepares) -> None:
+    """The ICP step kernel in whole blocks of BLOCK_ITERATIONS (at least
+    one block a frame, enough slots for the `iterations` the frames
+    took), GN once per ICP step, the policy once a frame (the insert),
+    the radius count once per prepare (the filter: once a frame, and once
+    more in each of IcpTimer's replays), the NN and sort kernels not at
+    all. Every count is the kernels' own, read from the card."""
+    from sage_icp_tpu_torch.ops.registration import BLOCK_ITERATIONS
+
+    slots = launches["icp_step"]
+    blocks, rest = divmod(slots, BLOCK_ITERATIONS)
+    if rest or blocks < frames or iterations > slots:
+        fail(f"{name}: {slots} ICP steps ({blocks} blocks and {rest}) for {frames} frames and {iterations} "
+             "iterations")
+    expect = dict(fused_gn_iteration=slots, apply_policy=frames, radius_count=prepares,
+                  fused_semantic_nn=0, bitonic_sort_planes=0)
     for kernel, count in expect.items():
         if launches[kernel] != count:
             fail(f"{name}: {kernel} launched {launches[kernel]} times, expected {count}")
@@ -581,9 +643,7 @@ def register(odom, scans, warmup: int, n: int):
     """The drives' calls: register_frame on scans[:warmup], then timed on
     scans[warmup:n]. Returns (seconds of the timed frames, the launches
     counted from the first frame on)."""
-    from sage_icp_tpu_torch.ops import cuda_lib
-
-    cuda_lib.reset_launches()
+    reset_counts()
     for i in range(warmup):
         odom.register_frame(scans[i])
     torch.cuda.synchronize()
@@ -591,7 +651,7 @@ def register(odom, scans, warmup: int, n: int):
     for i in range(warmup, n):
         odom.register_frame(scans[i])
     torch.cuda.synchronize()
-    return time.perf_counter() - t0, dict(cuda_lib.LAUNCHES)
+    return time.perf_counter() - t0, counts()
 
 
 def drive(name: str, odom, density: float, warmup: int, frames: int, extra: int):
@@ -655,7 +715,7 @@ def single_pass(odom, scan):
         odom.state.map, tables, query, valid, cfg.voxel_size_map, 1.5, cfg.sem_th, cfg.probe_depth,
         cfg.corr_unique_voxel_rows, cfg.corr_queries_per_voxel, cfg.corr_overflow_rows)
     torch.cuda.synchronize()
-    launches = cuda_lib.LAUNCHES["fused_semantic_nn"]
+    launches = cuda_lib.launches()["fused_semantic_nn"]
     tgt_ref, acc_ref = hm.get_correspondences(odom.state.map, query, valid, cfg.voxel_size_map, 1.5,
                                               cfg.sem_th, cfg.probe_depth)
     n_acc = int(acc_ref.sum())
@@ -788,7 +848,7 @@ def kitti_checks(odom, scan):
     cuda_lib.reset_launches()
     s_key, s_pos = sort_kernel.bitonic_sort_planes((key, pos), 2)
     torch.cuda.synchronize()
-    launches = cuda_lib.LAUNCHES["bitonic_sort_planes"]
+    launches = cuda_lib.launches()["bitonic_sort_planes"]
     ref = torch.sort(key, stable=True)
     if launches != 1 or not torch.equal(s_pos.long(), ref.indices) or not torch.equal(s_key, ref.values):
         fail("bitonic_sort_planes on the filter's sort keys differs from torch.sort(stable=True)")
@@ -841,7 +901,7 @@ def profile(name, odom, scans, tss=None) -> tuple[float, dict]:
         t3 = time.perf_counter()
         for k, dt in zip(phases, (t1 - t0, t2 - t1, t3 - t2)):
             phases[k] += dt
-        iters += icp.iterations
+        iters += int(icp.iterations)
     print(f"{name} profile host phases (ms/frame, state held fixed): "
           + ", ".join(f"{k} {1e3 * v / n:.3f}" for k, v in phases.items())
           + f"; ICP iterations/frame {iters / n:.2f}", flush=True)
@@ -855,12 +915,15 @@ def profile(name, odom, scans, tss=None) -> tuple[float, dict]:
             odom.register_frame(scan, ts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    avg = prof.key_averages()
+    events = [e for e in avg if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
     launches = sum(e.count for e in events)
+    host = lambda names: sum(e.count for e in avg if e.key in names) / n
     print(f"{name} profile: {n} frames, wall {1e3 * wall / n:.3f} ms/frame, device busy "
           f"{busy_us / 1e3 / n:.3f} ms/frame, idle share {1 - busy_us / 1e6 / wall:.4f}, "
-          f"{launches / n:.1f} device ops/frame", flush=True)
+          f"{launches / n:.1f} device ops/frame, {host(HOST_LAUNCH):.1f} host launch calls and "
+          f"{host(HOST_WAIT):.1f} host waits a frame", flush=True)
     line = lambda e: f"  {e.self_device_time_total / 1e3 / n:9.4f} ms/frame {e.count / n:7.1f}x  {e.key[:90]}"
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(line(e), flush=True)
@@ -875,17 +938,16 @@ def run_cli(mode: str, extra: list) -> dict:
     """Phase 9.1-9.2: the CLI in process, kitti preset with deskew, over
     CLI_FRAMES synthetic frames into build/cli_smoke/<mode>; the gates on
     its outputs, drops and launches. Returns the mode's numbers and path."""
-    from sage_icp_tpu_torch.ops import cuda_lib
     from sage_icp_tpu_torch.runtime import cli
 
     out = os.path.join(CLI_OUT, mode)
     argv = ["--synthetic", "--preset", "kitti", "--deskew", "--frames", str(CLI_FRAMES), "--chunk", "8",
             "--out", out, *extra]
-    cuda_lib.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     res = cli.main(argv)["synthetic"]
     wall = time.perf_counter() - t0
-    launches = dict(cuda_lib.LAUNCHES)
+    launches = counts()
     with open(os.path.join(out, "metrics.json")) as f:
         ate = json.load(f)["synthetic"]["ate_trans_m"]
     files = {}
@@ -934,10 +996,9 @@ def deskew_drive(deskew: bool, scans, tss, gt):
     """Phase 9.3: the kitti preset, deskew on or off, over the skewed
     scans; no drop, the launches. Returns (odom, ATE, ms/frame)."""
     from sage_icp_tpu_torch.models.pipeline import PRESETS, SageICP
-    from sage_icp_tpu_torch.ops import cuda_lib
 
     odom = SageICP(dataclasses.replace(PRESETS["kitti"], deskew=deskew))
-    cuda_lib.reset_launches()
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for scan, ts in zip(scans, tss):
@@ -948,7 +1009,7 @@ def deskew_drive(deskew: bool, scans, tss, gt):
     name = f"skewed kitti drive, deskew {'on' if deskew else 'off'}"
     if int(totals.overflow_total()) != 0:
         fail(f"{name}: silent-drop counters over all frames: {totals}")
-    expect_launches(name, dict(cuda_lib.LAUNCHES), sum(odom.icp_iters), len(scans), len(scans))
+    expect_launches(name, counts(), sum(odom.icp_iters), len(scans), len(scans))
     ate = ate_of(odom.trajectory(), gt)
     print(f"{name}: ATE {ate:.5f} m, {ms:.3f} ms/frame, ICP iterations {sum(odom.icp_iters)}", flush=True)
     return odom, ate, ms
@@ -1049,13 +1110,13 @@ def host_ms(fn, reps: int = 50) -> float:
 
 def collective_ms(mesh, dev, policy_rows: int, kmax: int) -> dict:
     """The sharded step's two exchanges on `mesh`, host ms a call: the GN
-    sums' (the (1, 18) gather and its fetch, against the single-device
-    fetch of the (18,) sums) and the insert's (the gather of `policy_rows`
-    packed rows of 8 K + 4 bytes)."""
+    sums' (the (1, 18) gather and the add on the device, against a fetch
+    of the (18,) sums to the host) and the insert's (the gather of
+    `policy_rows` packed rows of 8 K + 4 bytes)."""
     sums = torch.zeros(18, device=dev)
     packed = torch.zeros((policy_rows, 8 * kmax + 4), dtype=torch.uint8, device=dev)
-    return dict(gn_exchange=host_ms(lambda: mesh.all_gather(sums[None]).cpu()), gn_fetch=host_ms(lambda: sums.cpu()),
-                insert_gather=host_ms(lambda: mesh.all_gather(packed)))
+    return dict(gn_exchange=host_ms(lambda: mesh.all_gather(sums[None])[0] + 0.0),
+                gn_fetch=host_ms(lambda: sums.cpu()), insert_gather=host_ms(lambda: mesh.all_gather(packed)))
 
 
 def nccl_world_of_one(scans, traj, dev, profile_scans=None) -> None:
@@ -1097,8 +1158,9 @@ def nccl_world_of_one(scans, traj, dev, profile_scans=None) -> None:
     print(f"NCCL world of one (ShardedSageICP(), kitti preset): trajectory equal to phase 6's bit for bit; "
           f"{1e3 * elapsed / frames:.3f} ms/frame over {frames} timed frames; ICP iterations "
           f"{sum(iters)}; launches {launches}", flush=True)
-    print(f"NCCL world of one, host ms a call: GN sums gathered and fetched {coll['gn_exchange']:.4f} "
-          f"(fetched alone {coll['gn_fetch']:.4f}); the insert's gather {coll['insert_gather']:.4f}", flush=True)
+    print(f"NCCL world of one, host ms a call: GN sums gathered and added on the card {coll['gn_exchange']:.4f} "
+          f"(a fetch to the host alone {coll['gn_fetch']:.4f}); the insert's gather {coll['insert_gather']:.4f}",
+          flush=True)
 
 
 def two_ranks_one_card(scans, traj, gt, dev) -> None:
@@ -1153,7 +1215,8 @@ def two_ranks_one_card(scans, traj, gt, dev) -> None:
             fail(f"rank {r}: silent-drop counters over all frames: {rep['aux_totals']}")
         iters = sum(rep["icp_iterations"])
         expect_launches(f"rank {r} of two", rep["launches"], iters, n, n)
-        want_rows = {"fused_gn_iteration": {str(gn_rows): iters}, "apply_policy": {str(policy_rows): n}}
+        slots = rep["launches"]["icp_step"]
+        want_rows = {"fused_gn_iteration": {str(gn_rows): slots}, "apply_policy": {str(policy_rows): n}}
         if rep["kernel_rows"] != want_rows:
             fail(f"rank {r}: kernel rows {rep['kernel_rows']}, expected {want_rows}")
         print(f"two ranks sharing one card (gloo), rank {r}: {rep['ms_per_frame']:.3f} ms/frame after the first "
@@ -1274,11 +1337,10 @@ def long_horizon_phase() -> None:
     trajectory, render seed and chunk of 30), with dense_grid off and on.
     Gates: test_long_horizon_city_drive's bounds on each, the two
     trajectories equal bit for bit and the final maps slot for slot, the
-    grid consistent, the kernels launched once per ICP iteration (GN) and
+    grid consistent, the kernels launched in every slot of every ICP block (GN) and
     once a frame (policy)."""
     from sage_icp_tpu_torch.metrics import kitti as metrics
     from sage_icp_tpu_torch.models.pipeline import SageICP
-    from sage_icp_tpu_torch.ops import cuda_lib
     from sage_icp_tpu_torch.utils import synthetic
 
     pts, labs = synthetic.build_city_world(seed=2, size=260.0, block=50.0, density=1.6)
@@ -1291,14 +1353,14 @@ def long_horizon_phase() -> None:
     runs = {}
     for grid in (False, True):
         odom = SageICP(dataclasses.replace(long_city_config(), dense_grid=grid))
-        cuda_lib.reset_launches()
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(0, LONG_FRAMES, LONG_CHUNK):
             odom.register_chunk(scans[i : i + LONG_CHUNK])
         est = odom.trajectory()
         elapsed = time.perf_counter() - t0
-        launches = dict(cuda_lib.LAUNCHES)
+        launches = counts()
         t_err, r_err = metrics.seq_error(gt_rel, est)
         _, ate = metrics.absolute_trajectory_error(gt_rel, est)
         out = dict(rel_trans_err_pct=float(t_err), rel_rot_err_deg_per_m=float(r_err), ate_trans_m=float(ate),
@@ -1340,8 +1402,8 @@ def bench_phase(rendered: dict) -> None:
     phases 4 and 6 rendered, their render generator)}; the rest of each
     phase's scans are rendered on."""
     import bench_torch
+    from sage_icp_tpu_torch.models import pipeline as pl
     from sage_icp_tpu_torch.models.pipeline import PRESETS
-    from sage_icp_tpu_torch.ops import cuda_lib
     from sage_icp_tpu_torch.utils import synthetic
 
     saved = {k: os.environ.pop(k) for k in list(os.environ) if k.startswith("BENCH_")}
@@ -1360,12 +1422,12 @@ def bench_phase(rendered: dict) -> None:
         runs = {}
         for overlap in ("1", "0"):
             os.environ["BENCH_OVERLAP"] = overlap
-            cuda_lib.reset_launches()
+            reset_counts()
             try:
                 out, phases = bench_torch.main(scans)
             except bench_torch.GuardError as e:
                 fail(f"bench_torch.py, BENCH_OVERLAP={overlap}: {e}")
-            launches = dict(cuda_lib.LAUNCHES)
+            launches = counts()
             label = f"bench_torch.py, BENCH_OVERLAP={overlap}"
             if list(out) != bench_py_keys():
                 fail(f"{label}: JSON keys {list(out)}, bench.py's {bench_py_keys()}")
@@ -1378,16 +1440,293 @@ def bench_phase(rendered: dict) -> None:
             print(f"{label}: launches {launches} over {city.frames} city and {kitti.frames} kitti frames; "
                   f"city {city.scans_per_sec} scans/s, kitti {kitti.scans_per_sec} scans/s", flush=True)
             runs[overlap] = phases
+        # the same bench with the eager device step (SageICP built with
+        # graph=False: no knob of the bench), against the captured one
+        os.environ["BENCH_OVERLAP"] = "1"
+        captured = pl.SageICP
+        pl.SageICP = functools.partial(captured, graph=False)
+        try:
+            out, runs["eager"] = bench_torch.main(scans)
+        except bench_torch.GuardError as e:
+            fail(f"bench_torch.py with the eager step: {e}")
+        finally:
+            pl.SageICP = captured
+        print(f"bench_torch.py, graph off (eager device step), BENCH_OVERLAP=1: city "
+              f"{runs['eager']['city'].scans_per_sec} scans/s, kitti {runs['eager']['kitti'].scans_per_sec} scans/s "
+              f"(graph on: {runs['1']['city'].scans_per_sec}, {runs['1']['kitti'].scans_per_sec})", flush=True)
         for name in ("city", "kitti"):
-            a, b = runs["1"][name].trajectory, runs["0"][name].trajectory
-            if not np.array_equal(a, b):
-                fail(f"bench {name} phase: overlap on and off differ: max |diff| {np.abs(a - b).max()}")
-        print(f"bench: overlap on and off give the same trajectories bit for bit in both phases; phase 13 took "
+            for other in ("0", "eager"):
+                a, b = runs["1"][name].trajectory, runs[other][name].trajectory
+                if not np.array_equal(a, b):
+                    fail(f"bench {name} phase: {other} differs from the captured run with the overlap: max |diff| "
+                         f"{np.abs(a - b).max()}")
+        print(f"bench: overlap on and off, and the eager step, give the same trajectories bit for bit in both "
+              f"phases; phase 13 took "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         for k in [k for k in os.environ if k.startswith("BENCH_")]:
             del os.environ[k]
         os.environ.update(saved)
+
+
+def aux_equal(a, b) -> bool:
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def graph_pair(label: str, config, scans, tss=None, ref_traj=None, per_frame: int = 24, chunk: int = 8):
+    """Phase 14.1 on one path: the same drive through SageICP with the
+    captured step and with the eager one: register_frame on the first
+    `per_frame` scans (the last aux read after each), then register_chunk
+    in chunks of `chunk` (the chunk's aux after each). Equal bit for bit:
+    trajectories, per-frame iterations, every aux read, the running
+    totals, the final maps slot for slot (the dense grid too); the
+    launches as on any path; the graph run equal to the path's own
+    trajectory (ref_traj). Returns {graph: (odom, ms/frame)}."""
+    from sage_icp_tpu_torch.models.pipeline import SageICP
+
+    tss = tss or [None] * len(scans)
+    runs = {}
+    for graph in (True, False):
+        odom = SageICP(config, graph=graph)
+        auxes = []
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for scan, ts in zip(scans[:per_frame], tss[:per_frame]):
+            odom.register_frame(scan, ts)
+            auxes.append(odom.last_aux)
+        for i in range(per_frame, len(scans), chunk):
+            odom.register_chunk(scans[i:i + chunk], tss[i:i + chunk] if tss[0] is not None else None)
+            auxes.append(odom.last_aux)
+        traj = odom.trajectory()
+        ms = 1e3 * (time.perf_counter() - t0) / len(scans)
+        launches = counts()
+        name = f"{label}, graph={graph}"
+        if int(odom.aux_totals().overflow_total()) != 0:
+            fail(f"{name}: silent-drop counters over all frames: {odom.aux_totals()}")
+        expect_launches(name, launches, sum(odom.icp_iters), len(scans),
+                        len(scans) if config.dynamic_vehicle_filter else 0)
+        runs[graph] = dict(odom=odom, auxes=auxes, traj=traj, ms=ms, launches=launches)
+    on, off = runs[True], runs[False]
+    if not np.array_equal(on["traj"], off["traj"]):
+        fail(f"{label}: graph and eager trajectories differ: max |diff| {np.abs(on['traj'] - off['traj']).max()}")
+    if on["odom"].icp_iters != off["odom"].icp_iters:
+        fail(f"{label}: graph and eager per-frame iterations differ")
+    if not all(aux_equal(a, b) for a, b in zip(on["auxes"], off["auxes"])) or not aux_equal(
+            on["odom"].aux_totals(), off["odom"].aux_totals()):
+        fail(f"{label}: graph and eager aux differ")
+    a, b = on["odom"].state.map, off["odom"].state.map
+    if (a.grid is None) != (b.grid is None) or map_differs(a, b) or (a.grid is not None and not torch.equal(a.grid, b.grid)):
+        fail(f"{label}: graph and eager final maps differ")
+    if ref_traj is not None and not np.array_equal(on["traj"], ref_traj[:len(on["traj"])]):
+        fail(f"{label}: the graph run differs from the path's own run: max |diff| "
+             f"{np.abs(on['traj'] - ref_traj[:len(on['traj'])]).max()}")
+    print(f"{label}: graph = eager bit for bit over {len(scans)} frames ({per_frame} per frame, then chunks of "
+          f"{chunk}): poses, iterations {sum(on['odom'].icp_iters)}, {len(on['auxes'])} aux reads, totals, final "
+          f"map{' and grid' if a.grid is not None else ''}; ms/frame graph {on['ms']:.3f}, eager {off['ms']:.3f} "
+          f"(first frame and captures included); launches graph {on['launches']}", flush=True)
+    return {g: (r["odom"], r["ms"]) for g, r in runs.items()}
+
+
+def recorded_steps(config, scans, n: int = 64) -> list:
+    """The first `n` ICP steps of an eager drive over `scans` that ran
+    (status RUNNING): (sums, loop_f, loop_i) before each, cloned."""
+    from sage_icp_tpu_torch.models.pipeline import SageICP
+    from sage_icp_tpu_torch.ops import icp_kernel as ik
+
+    seen = []
+    orig = ik.icp_step
+
+    def spy(sums, f, i, max_iterations, drift_lim):
+        if len(seen) < n and int(i[ik.I_STATUS]) == ik.RUNNING:
+            seen.append((sums.clone(), f.clone(), i.clone(), max_iterations, drift_lim))
+        return orig(sums, f, i, max_iterations, drift_lim)
+
+    odom = SageICP(config, graph=False)
+    ik.icp_step = spy
+    try:
+        for scan in scans:
+            odom.register_frame(scan)
+            if len(seen) >= n:
+                break
+    finally:
+        ik.icp_step = orig
+    return seen
+
+
+def icp_step_row(config, scans) -> dict:
+    """Phase 14.2: the ICP step kernel against its plain version bit for
+    bit from the states and GN sums an eager kitti drive recorded, and its
+    times: a step, a no-op step (a stopped loop's slot), the plain
+    version; a no-op GN launch beside them. Returns its kernel-table row."""
+    from sage_icp_tpu_torch.ops import icp_kernel as ik
+
+    rec = recorded_steps(config, scans)
+    statuses, err = [], 0.0
+    for sums, f, i, max_it, lim in rec:
+        fk, ik_, fp, ip = f.clone(), i.clone(), f.clone(), i.clone()
+        ik.icp_step(sums, fk, ik_, max_it, lim)
+        ik.icp_step_plain(sums, fp, ip, max_it, lim)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_diff((fk, ik_), (fp, ip)))
+        if not (torch.equal(fk, fp) and torch.equal(ik_, ip)):
+            fail(f"icp_step differs from its plain version on a recorded step: {max_abs_diff((fk,), (fp,))}, "
+                 f"{ik_.tolist()} vs {ip.tolist()}")
+        statuses.append(int(ik_[ik.I_STATUS]))
+    sums, f, i, max_it, lim = rec[0]
+    copies = [(f.clone(), i.clone()) for _ in range(160)]
+    it = iter(copies)
+    step_ms = time_ms(lambda: ik.icp_step(sums, *next(it), max_it, lim))
+    plain = iter([(f.clone(), i.clone()) for _ in range(160)])
+    plain_ms = time_ms(lambda: ik.icp_step_plain(sums, *next(plain), max_it, lim))
+    done = i.clone()
+    done[ik.I_STATUS] = ik.DONE
+    noop_ms = time_ms(lambda: ik.icp_step(sums, f, done, max_it, lim))  # a no-op writes nothing
+    print(f"icp_step: bit for bit against its plain version on {len(rec)} recorded kitti steps (statuses after: "
+          f"{statuses.count(ik.RUNNING)} running, {statuses.count(ik.DONE)} done, {statuses.count(ik.REANCHOR)} "
+          f"re-anchor); kernel {step_ms:.4f} ms a step, {noop_ms:.4f} ms a no-op step; plain {plain_ms:.4f} ms",
+          flush=True)
+    # the bound: 72 B of sums and ~200 B of state read and written once,
+    # ~700 float32 operations; launch latency, not this, is the floor
+    b_ms, b_by = bound(18 * 4 + 2 * (ik.LOOP_F * 4 + ik.LOOP_I * 4), 700)
+    return dict(route="cuda", source="sage_icp_tpu_torch/csrc/icp_step.cu",
+                replaces="sage_icp_tpu/ops/registration.py:270 (no TPU kernel: the lax.while_loop body)",
+                max_abs_err=err, ms=step_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def gn_noop_ms(dev) -> float:
+    """A GN launch with a stopped status at kitti shapes (a block's
+    trailing slot)."""
+    from sage_icp_tpu_torch.ops import nn_kernels
+
+    d = row_inputs(np.random.default_rng(1), dev, KITTI)
+    v = KITTI["voxel"]
+    stop = torch.ones((), dtype=torch.int32, device=dev)
+    args = (*d["planes"], *d["offs"], d["q0"], d["origin"], d["row_abs"], d["used"], d["T"],
+            GN_CONST["sem_th"], v / 32767.0, v, GN_CONST["max_corr"], GN_CONST["kth"])
+    tile_map = nn_kernels.default_tile_map(d["used"])
+    return time_ms(lambda: nn_kernels.fused_gn_iteration(*args, tile_map=tile_map, status=stop))
+
+
+def sync_free_check(label: str, config, scans) -> None:
+    """Phase 14.3: the eager device step under
+    torch.cuda.set_sync_debug_mode("error") on frames already on the card,
+    after a first frame (which builds the constants): any synchronising
+    operation inside the step raises. The status read per block (a
+    non-blocking copy to pinned memory and an event) is not one."""
+    from sage_icp_tpu_torch.models import pipeline as pl
+
+    odom = pl.SageICP(config, graph=False)
+    step = odom._device_step()
+    bufs = torch.from_numpy(odom.pad_chunk(scans)).to("cuda")
+    state, *_ = step(odom.state, bufs[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in bufs[1:]:
+            state, *_ = step(state, b)
+    except RuntimeError as e:
+        fail(f"the eager device step synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"{label}: the eager device step ran {len(scans) - 1} frames under set_sync_debug_mode('error') "
+          "without a synchronising operation", flush=True)
+
+
+HOST_LAUNCH = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync",
+               "cuLaunchKernel", "cuLaunchKernelEx")
+HOST_WAIT = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize")
+
+
+def host_profile(label: str, odom, scans) -> dict:
+    """Phase 14.4: what the host issues and waits for in a frame, and the
+    device's busy share, from torch.profiler over `scans` registered
+    through `odom` (already warm): the CUDA runtime calls that launch
+    work (kernels, graphs, copies, memsets) and that wait for the card,
+    per frame; device busy ms a frame (kernel records; inside a graph too,
+    where the profiler records them)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for scan in scans:
+            odom.register_frame(scan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avg = prof.key_averages()
+    n = len(scans)
+    calls = lambda names: sum(e.count for e in avg if e.key in names) / n
+    by = {e.key: e.count / n for e in avg if e.key in HOST_LAUNCH + HOST_WAIT}
+    busy_us = sum(e.self_device_time_total for e in avg if e.device_type == torch.autograd.DeviceType.CUDA)
+    out = dict(launches=calls(HOST_LAUNCH), waits=calls(HOST_WAIT), busy_ms=busy_us / 1e3 / n,
+               wall_ms=1e3 * wall / n, idle=1 - busy_us / 1e6 / wall if busy_us else float("nan"), by=by)
+    print(f"{label}: host launches {out['launches']:.1f} a frame, host waits {out['waits']:.1f} a frame "
+          f"({', '.join(f'{k} {v:.1f}' for k, v in sorted(by.items()))}); device busy "
+          f"{out['busy_ms']:.3f} ms/frame of {out['wall_ms']:.3f} (profiled), idle share {out['idle']:.4f}",
+          flush=True)
+    return out
+
+
+def peak_memory(config, scans, graph: bool) -> float:
+    """Phase 14.5: the device memory a fresh SageICP takes at its peak
+    over `scans`, above what was allocated before it, in MiB."""
+    import gc
+
+    from sage_icp_tpu_torch.models.pipeline import SageICP
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    odom = SageICP(config, graph=graph)
+    for scan in scans:
+        odom.register_frame(scan)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    del odom
+    gc.collect()
+    return peak
+
+
+def graph_phase(city_scans, kitti_scans, skewed, tss, refs: dict) -> dict:
+    """Phase 14: the captured step. Returns icp_step's kernel-table row."""
+    from sage_icp_tpu_torch.models.pipeline import PRESETS, SageICP
+
+    n = WARMUP + FRAMES
+    kitti = PRESETS["kitti"]
+    graph_pair("city path", PRESETS["city"], city_scans[:n], ref_traj=refs["city"])
+    graph_pair("kitti path", kitti, kitti_scans[:n], ref_traj=refs["kitti"])
+    graph_pair("kitti + deskew path", dataclasses.replace(kitti, deskew=True), skewed[:n], tss[:n],
+               ref_traj=refs["deskew"])
+    graph_pair("kitti dense_grid path", dataclasses.replace(kitti, dense_grid=True), kitti_scans[:n],
+               ref_traj=refs["kitti"])
+    row = icp_step_row(kitti, kitti_scans[:n])
+    print(f"fused_gn_iteration with a stopped status at kitti shapes (a block's trailing slot): "
+          f"{gn_noop_ms(torch.device('cuda')):.4f} ms", flush=True)
+    sync_free_check("kitti path", kitti, kitti_scans[:6])
+    sync_free_check("kitti + deskew path", dataclasses.replace(kitti, deskew=True), skewed[:6])
+    sync_free_check("city path", PRESETS["city"], city_scans[:6])
+    for name, cfg, scans in (("kitti", kitti, kitti_scans), ("city", PRESETS["city"], city_scans)):
+        for graph in (True, False):
+            odom = SageICP(cfg, graph=graph)
+            for scan in scans[:WARMUP]:
+                odom.register_frame(scan)
+            host_profile(f"{name} host profile, graph={graph}", odom, scans[WARMUP:WARMUP + 5])
+        mem = {g: peak_memory(cfg, scans[:12], g) for g in (True, False)}
+        print(f"{name}: peak device memory of a fresh SageICP over 12 frames, above the baseline: graph on "
+              f"{mem[True]:.1f} MiB, off {mem[False]:.1f} MiB", flush=True)
+        ms = {True: [], False: []}
+        for graph in (True, False, False, True, True, False):
+            odom = SageICP(cfg, graph=graph)
+            elapsed, _ = register(odom, scans, WARMUP, n)
+            ms[graph].append(1e3 * elapsed / FRAMES)
+        print(f"{name}: ms/frame over {FRAMES} timed frames after {WARMUP}, graph on {[round(x, 3) for x in ms[True]]}"
+              f" (median {np.median(ms[True]):.3f}), off {[round(x, 3) for x in ms[False]]} (median "
+              f"{np.median(ms[False]):.3f}); alternated on, off, off, on, on, off", flush=True)
+    return row
 
 
 def main() -> int:
@@ -1447,6 +1786,9 @@ def main() -> int:
     dense_grid_phase("city", city_scans, city_traj, city_map, city_gt, city_scans[n:] if args.profile else None)
     long_horizon_phase()
     bench_phase({"city": (city_scans, city_rng), "kitti": (kitti_scans, kitti_rng)})
+    rows["icp_step"] = graph_phase(city_scans, kitti_scans, skewed, tss,
+                                   {"city": city_traj, "kitti": kitti_traj, "deskew": deskew_odom.trajectory()})
+    print_row("icp_step", rows["icp_step"])
     if args.profile:
         profile("city", city, city_scans[n:])
         profile("kitti", kitti, kitti_scans[n:])

@@ -60,6 +60,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch_count.cuh"
+
 namespace {
 
 constexpr int kMaxPlanes = 16;
@@ -75,6 +77,7 @@ struct Args {
   uint32_t* state;  // [num_keys + 1][n]: keys as uint32 order, then the source
   int n, n_planes, num_keys;
   unsigned flip[kMaxPlanes];  // 0x80000000 for a signed key, else 0
+  unsigned long long* launches;  // the call's launch counter: the first launch counts
 };
 
 // Register bits of a global pass's thread for nk keys: four stages a
@@ -219,6 +222,7 @@ template <int NK>
 __global__ void __launch_bounds__(NK <= 4 ? 512 : 256)  // max_threads
     bitonic_tile_kernel(const __grid_constant__ Args a, int tile_log2, int k_first, int k_last,
                         int first, int last) {
+  if (first) sage::count_launch(a.launches);
   extern __shared__ uint32_t sh[];  // [num_keys + 1][padded(T)]
   const int t = threadIdx.x;
   const int base = blockIdx.x << tile_log2;
@@ -367,10 +371,11 @@ extern "C" int sage_bitonic_launches(int n, int num_keys) {
 // Sorts n positions of n_planes planes. in: n_planes device pointers (read
 // only); out: n_planes device pointers (written); state: (num_keys + 1) x n
 // 32-bit words of scratch; key_unsigned: num_keys flags (non-zero =
-// compare that key as uint32).
+// compare that key as uint32); launches: the call's launch counter
+// (launch_count.cuh), one a call.
 extern "C" int sage_bitonic_sort(void* const* in, void* const* out, void* state,
                                  const int* key_unsigned, int n_planes, int num_keys, int n,
-                                 void* stream) {
+                                 void* launches, void* stream) {
   const int tile = tile_for(n, num_keys);
   if (tile == 0 || n_planes < num_keys || n_planes > kMaxPlanes) return (int)cudaErrorInvalidValue;
   Args a = {};
@@ -379,6 +384,7 @@ extern "C" int sage_bitonic_sort(void* const* in, void* const* out, void* state,
     a.out[q] = (uint32_t*)out[q];
   }
   a.state = (uint32_t*)state;
+  a.launches = (unsigned long long*)launches;
   a.n = n;
   a.n_planes = n_planes;
   a.num_keys = num_keys;

@@ -52,7 +52,19 @@
 // card: for given inputs the result is the same on every run and every
 // card. The per-slot term arithmetic is the plain version's, with
 // round-to-nearest intrinsics.
+//
+// Inputs that change from one iteration or frame to the next come from
+// device memory, never as launch arguments, so that a captured CUDA
+// graph replays them right and the ICP loop needs no host copy: the
+// increment T (rows 0-2 of a row-major 4x4, staged once per block in
+// shared memory), the correspondence gate max_corr and the robust kernel
+// kth (both from the frame's sigma), and a status word. A status other
+// than 0 means the ICP loop has stopped (converged, at its iteration
+// cap, or waiting for a re-anchor): every block returns before it reads
+// anything else, writes nothing and takes no ticket, so the counter
+// stays at zero.
 
+#include "launch_count.cuh"
 #include "selection.cuh"
 
 namespace {
@@ -61,11 +73,6 @@ constexpr int kNSums = 18;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxBlocks = 528;  // nn_kernels.GN_MAX_BLOCKS
-
-// Rows 0-2 of the 4x4 increment T, row-major, by value.
-struct Pose {
-  float t[12];
-};
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -127,10 +134,9 @@ struct Query {
 };
 
 __device__ __forceinline__ Query transform_query(
-    const Pose& T, const float* __restrict__ q0, const int32_t* __restrict__ row_abs,
+    const float* t, const float* __restrict__ q0, const int32_t* __restrict__ row_abs,
     const int32_t* __restrict__ used, int row, int p, int P, float ox, float oy,
     float oz, float vox) {
-  const float* t = T.t;
   const float* qr = q0 + (long)row * 4 * P + 4 * p;
   const float x0 = __ldg(qr + 0), y0 = __ldg(qr + 1), z0 = __ldg(qr + 2);
   Query q;
@@ -159,17 +165,33 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 4 : 2) gn_iteration_kernel(
     const float* __restrict__ offz, const float* __restrict__ q0,
     const float* __restrict__ origin, const int32_t* __restrict__ row_abs,
     const int32_t* __restrict__ used, const int32_t* __restrict__ tile_map,
-    int tile_rows, const __grid_constant__ Pose T, int R, int M, float sem_th, float scale,
-    float vox, float max_corr, float kth, float* __restrict__ partials,
-    int* __restrict__ counter, float* __restrict__ out) {
+    int tile_rows, const float* __restrict__ T, int R, int M, float sem_th, float scale,
+    float vox, const float* __restrict__ max_corr_p, const float* __restrict__ kth_p,
+    const int32_t* __restrict__ status, float* __restrict__ partials,
+    int* __restrict__ counter, float* __restrict__ out,
+    unsigned long long* __restrict__ launches) {
+  sage::count_launch(launches);
+  if (__ldg(status) != 0) return;  // the loop has stopped: a no-op launch
   // lane offsets, [axis][e][v] for candidate m = v * W + e
   extern __shared__ float s_off[];
   // lane p of a warp adds slot p's terms to its own row here
   __shared__ float s_acc[kWarps][P][kNSums];
+  // T (rows 0-2), then the gate and the kernel's terms: staged once, read
+  // from shared memory where they are used (no registers held over the
+  // candidate loop)
+  __shared__ float s_T[12];
+  __shared__ float s_gate[3];  // max_corr^2, kth, kth^2
   __shared__ bool is_last;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nv = M / W;  // chunks per row
+  if (threadIdx.x < 12) s_T[threadIdx.x] = __ldg(T + threadIdx.x);
+  if (threadIdx.x == 32) {
+    const float max_corr = __ldg(max_corr_p), kth = __ldg(kth_p);
+    s_gate[0] = mul(max_corr, max_corr);
+    s_gate[1] = kth;
+    s_gate[2] = mul(kth, kth);
+  }
   for (int i = threadIdx.x; i < kWarps * P * kNSums; i += kThreads) (&s_acc[0][0][0])[i] = 0.f;
   for (int i = threadIdx.x; i < 3 * M; i += kThreads) {
     const int axis = i / M, m = i - axis * M;
@@ -180,9 +202,6 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 4 : 2) gn_iteration_kernel(
   const float* s_ox = s_off;
   const float* s_oy = s_off + M;
   const float* s_oz = s_off + 2 * M;
-
-  const float max_corr2 = mul(max_corr, max_corr);
-  const float k2 = mul(kth, kth);
 
   const int stride = gridDim.x * kWarps;
   for (int row = blockIdx.x * kWarps + warp; row < R; row += stride) {
@@ -202,7 +221,7 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 4 : 2) gn_iteration_kernel(
     float qx[P], qy[P], qz[P], ql[P];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      const Query q = transform_query(T, q0, row_abs, used, row, p, P, ox, oy, oz, vox);
+      const Query q = transform_query(s_T, q0, row_abs, used, row, p, P, ox, oy, oz, vox);
       qx[p] = q.qx;
       qy[p] = q.qy;
       qz[p] = q.qz;
@@ -260,7 +279,7 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 4 : 2) gn_iteration_kernel(
     if (lane < P) {
       // lane p: slot p's terms; the query is recomputed with the same
       // operations, so its values are the selection's
-      const Query q = transform_query(T, q0, row_abs, used, row, lane, P, ox, oy, oz, vox);
+      const Query q = transform_query(s_T, q0, row_abs, used, row, lane, P, ox, oy, oz, vox);
       const int s = (mine % W) * nv + mine / W;
       const float tx = sage::dequant(rx[mine], scale, s_ox[s]);
       const float ty = sage::dequant(ry[mine], scale, s_oy[s]);
@@ -271,9 +290,9 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 4 : 2) gn_iteration_kernel(
       const float dy = sub(q.qy, ty);
       const float dz = sub(q.qz, tz);
       const float r2 = sage::sq3(dx, dy, dz);
-      const bool accept = q.use && !t_invalid && r2 < max_corr2;
-      const float kr = add(kth, r2);
-      const float w = accept ? __fdiv_rn(k2, mul(kr, kr)) : 0.f;
+      const bool accept = q.use && !t_invalid && r2 < s_gate[0];
+      const float kr = add(s_gate[1], r2);
+      const float w = accept ? __fdiv_rn(s_gate[2], mul(kr, kr)) : 0.f;
       // every slot of a live row adds its products, zero weights included
       const float wsx = mul(w, sx), wsy = mul(w, sy), wsz = mul(w, sz);
       float* acc = s_acc[warp][lane];
@@ -345,9 +364,10 @@ cudaError_t launch(const void* cx, const void* cy, const void* cz, const void* c
                    const void* offx, const void* offy, const void* offz,
                    const void* q0, const void* origin, const void* row_abs,
                    const void* used, const void* tile_map, int tile_rows,
-                   const Pose& T, int R, int M, float sem_th, float scale, float vox,
-                   float max_corr, float kth, int n_blocks, void* partials,
-                   void* counter, void* out, cudaStream_t stream) {
+                   const void* T, int R, int M, float sem_th, float scale, float vox,
+                   const void* max_corr, const void* kth, const void* status, int n_blocks,
+                   void* partials, void* counter, void* out, void* launches,
+                   cudaStream_t stream) {
   const size_t smem = 3 * (size_t)M * sizeof(float);  // the lane offsets
   if (smem > 48 * 1024) {  // past the default: the instance's limit is raised to it
     const cudaError_t err = cudaFuncSetAttribute(
@@ -359,8 +379,9 @@ cudaError_t launch(const void* cx, const void* cy, const void* cz, const void* c
       (const int16_t*)cl, (const float*)offx, (const float*)offy,
       (const float*)offz, (const float*)q0, (const float*)origin,
       (const int32_t*)row_abs, (const int32_t*)used,
-      (const int32_t*)tile_map, tile_rows, T, R, M, sem_th, scale, vox,
-      max_corr, kth, (float*)partials, (int*)counter, (float*)out);
+      (const int32_t*)tile_map, tile_rows, (const float*)T, R, M, sem_th, scale, vox,
+      (const float*)max_corr, (const float*)kth, (const int32_t*)status, (float*)partials,
+      (int*)counter, (float*)out, (unsigned long long*)launches);
   return cudaGetLastError();
 }
 
@@ -384,23 +405,24 @@ cudaError_t launch(const void* cx, const void* cy, const void* cz, const void* c
 
 }  // namespace
 
-// T: 12 floats on the host, rows 0-2 of the 4x4 increment. partials:
+// Device pointers: T, 12 floats (rows 0-2 of the 4x4 increment); max_corr
+// and kth, one float each; status, one int32 (0 = run). partials:
 // kMaxBlocks rows of 18 floats; counter: one int32, zero before the first
-// call (each call leaves it zero).
+// call (each call leaves it zero); launches: the kernel's launch counter
+// (launch_count.cuh).
 extern "C" int sage_gn_iteration(
     const void* cx, const void* cy, const void* cz, const void* cl,
     const void* offx, const void* offy, const void* offz, const void* q0,
     const void* origin, const void* row_abs, const void* used,
-    const void* tile_map, int tile_rows, const float* T, int R, int M, int P,
-    float sem_th, float scale, float vox, float max_corr, float kth,
-    void* partials, void* counter, void* out, void* stream) {
+    const void* tile_map, int tile_rows, const void* T, int R, int M, int P,
+    float sem_th, float scale, float vox, const void* max_corr, const void* kth,
+    const void* status, void* partials, void* counter, void* out, void* launches,
+    void* stream) {
   if (M < 1 || R < 0) return (int)cudaErrorInvalidValue;
-  Pose pose;
-  for (int i = 0; i < 12; ++i) pose.t[i] = T[i];
   // at least one block: it writes the zeros of an empty call
   const int want = (R + kWarps - 1) / kWarps;
   const int n_blocks = want < 1 ? 1 : want < kMaxBlocks ? want : kMaxBlocks;
   SAGE_GN_DISPATCH(launch, cx, cy, cz, cl, offx, offy, offz, q0, origin, row_abs, used,
-                   tile_map, tile_rows, pose, R, M, sem_th, scale, vox, max_corr, kth,
-                   n_blocks, partials, counter, out, (cudaStream_t)stream)
+                   tile_map, tile_rows, T, R, M, sem_th, scale, vox, max_corr, kth, status,
+                   n_blocks, partials, counter, out, launches, (cudaStream_t)stream)
 }

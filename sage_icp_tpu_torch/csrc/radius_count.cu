@@ -54,6 +54,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch_count.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -137,7 +139,8 @@ __device__ __forceinline__ void count_group(const float4* cand_s, int nL, const 
 __global__ void __launch_bounds__(kThreads) radius_count_kernel(
     const float* __restrict__ cx, const float* __restrict__ cy, const float* __restrict__ cz,
     const float* __restrict__ q, const int32_t* __restrict__ used, int M, int P, float r2,
-    float margin, float* __restrict__ out) {
+    float margin, float* __restrict__ out, unsigned long long* __restrict__ launches) {
+  sage::count_launch(launches);
   extern __shared__ float4 cand_s[];  // [M] surviving lanes, then [P] queries
   float4* q_s = cand_s + M;
   int* slot_s = reinterpret_cast<int*>(q_s + P);  // [P] slot of each used query
@@ -270,7 +273,8 @@ __global__ void __launch_bounds__(kThreads) radius_count_kernel(
 
 extern "C" int sage_radius_count(const void* cx, const void* cy, const void* cz,
                                  const void* q, const void* used, int R, int M, int P,
-                                 float r2, float margin, void* out, void* stream) {
+                                 float r2, float margin, void* out, void* launches,
+                                 void* stream) {
   if (R > 0 && P > 0) {
     // the surviving lanes and the used queries (ops/nn_kernels.py radius_count_smem)
     const size_t smem = (size_t)(M + P) * sizeof(float4) + 3 * (size_t)P * sizeof(int);
@@ -281,7 +285,7 @@ extern "C" int sage_radius_count(const void* cx, const void* cy, const void* cz,
     }
     radius_count_kernel<<<R, kThreads, smem, (cudaStream_t)stream>>>(
         (const float*)cx, (const float*)cy, (const float*)cz, (const float*)q,
-        (const int32_t*)used, M, P, r2, margin, (float*)out);
+        (const int32_t*)used, M, P, r2, margin, (float*)out, (unsigned long long*)launches);
   }
   return (int)cudaGetLastError();
 }

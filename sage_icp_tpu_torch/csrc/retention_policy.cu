@@ -38,6 +38,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch_count.cuh"
+
 namespace {
 
 constexpr int kRows = 64;  // rows per tile = threads per block
@@ -150,7 +152,8 @@ __global__ void __launch_bounds__(kRows) retention_policy_kernel(
     int U, int K, int R, int basic,
     int16_t* __restrict__ ox, int16_t* __restrict__ oy,
     int16_t* __restrict__ oz, int16_t* __restrict__ ol,
-    int32_t* __restrict__ ocnt) {
+    int32_t* __restrict__ ocnt, unsigned long long* __restrict__ launches) {
+  sage::count_launch(launches);
   extern __shared__ int4 smem[];
   __shared__ int seg_s[kRows];
   // kRows * K and kRows * R are multiples of 8 int16, so every array
@@ -237,7 +240,7 @@ extern "C" int sage_retention_policy(
     const void* bx, const void* by, const void* bz, const void* bl,
     const void* counts, const void* seglen, const void* ix, const void* iy,
     const void* iz, const void* ie, int U, int K, int R, int basic,
-    void* ox, void* oy, void* oz, void* ol, void* ocnt, void* stream) {
+    void* ox, void* oy, void* oz, void* ol, void* ocnt, void* launches, void* stream) {
   if (K < 1 || K > kMaxSpan || R < 1 || R > kMaxSpan) return (int)cudaErrorInvalidValue;
   if (U > 0) {
     const size_t smem = (size_t)kRows * (5 * K + 4 * R) * sizeof(int16_t);
@@ -251,7 +254,7 @@ extern "C" int sage_retention_policy(
         (const int16_t*)bl, (const int32_t*)counts, (const int32_t*)seglen,
         (const int16_t*)ix, (const int16_t*)iy, (const int16_t*)iz,
         (const int16_t*)ie, U, K, R, basic, (int16_t*)ox, (int16_t*)oy,
-        (int16_t*)oz, (int16_t*)ol, (int32_t*)ocnt);
+        (int16_t*)oz, (int16_t*)ol, (int32_t*)ocnt, (unsigned long long*)launches);
   }
   return (int)cudaGetLastError();
 }

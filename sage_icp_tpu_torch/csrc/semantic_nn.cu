@@ -16,6 +16,7 @@
 // transactions; the queries and the offsets are per-row and per-lane
 // broadcasts that stay in L1. Only the (R, P) results are written.
 
+#include "launch_count.cuh"
 #include "selection.cuh"
 
 namespace {
@@ -28,7 +29,8 @@ __global__ void semantic_nn_kernel(
     const float* __restrict__ offz, const float* __restrict__ q, int R,
     int M, float sem_th, float scale, float* __restrict__ tx,
     float* __restrict__ ty, float* __restrict__ tz, float* __restrict__ tl,
-    float* __restrict__ d2out) {
+    float* __restrict__ d2out, unsigned long long* __restrict__ launches) {
+  sage::count_launch(launches);
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   if (row >= R) return;  // warp-uniform
   const float* qr = q + (long)row * 4 * P;
@@ -65,7 +67,7 @@ template <int P>
 void launch(const void* cx, const void* cy, const void* cz, const void* cl,
             const void* offx, const void* offy, const void* offz,
             const void* q, int R, int M, float sem_th, float scale, void* tx,
-            void* ty, void* tz, void* tl, void* d2, cudaStream_t stream) {
+            void* ty, void* tz, void* tl, void* d2, void* launches, cudaStream_t stream) {
   constexpr int kThreads = 256;  // 8 rows per block
   const long threads = (long)R * 32;
   semantic_nn_kernel<P><<<(threads + kThreads - 1) / kThreads, kThreads, 0,
@@ -73,7 +75,8 @@ void launch(const void* cx, const void* cy, const void* cz, const void* cl,
       (const int16_t*)cx, (const int16_t*)cy, (const int16_t*)cz,
       (const int16_t*)cl, (const float*)offx, (const float*)offy,
       (const float*)offz, (const float*)q, R, M, sem_th, scale, (float*)tx,
-      (float*)ty, (float*)tz, (float*)tl, (float*)d2);
+      (float*)ty, (float*)tz, (float*)tl, (float*)d2,
+      (unsigned long long*)launches);
 }
 
 }  // namespace
@@ -84,14 +87,14 @@ extern "C" int sage_semantic_nn(const void* cx, const void* cy,
                                 const void* offz, const void* q, int R, int M,
                                 int P, float sem_th, float scale, void* tx,
                                 void* ty, void* tz, void* tl, void* d2,
-                                void* stream) {
+                                void* launches, void* stream) {
   if (R <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   switch (P) {
-    case 1: launch<1>(cx, cy, cz, cl, offx, offy, offz, q, R, M, sem_th, scale, tx, ty, tz, tl, d2, s); break;
-    case 2: launch<2>(cx, cy, cz, cl, offx, offy, offz, q, R, M, sem_th, scale, tx, ty, tz, tl, d2, s); break;
-    case 4: launch<4>(cx, cy, cz, cl, offx, offy, offz, q, R, M, sem_th, scale, tx, ty, tz, tl, d2, s); break;
-    case 8: launch<8>(cx, cy, cz, cl, offx, offy, offz, q, R, M, sem_th, scale, tx, ty, tz, tl, d2, s); break;
+    case 1: launch<1>(cx, cy, cz, cl, offx, offy, offz, q, R, M, sem_th, scale, tx, ty, tz, tl, d2, launches, s); break;
+    case 2: launch<2>(cx, cy, cz, cl, offx, offy, offz, q, R, M, sem_th, scale, tx, ty, tz, tl, d2, launches, s); break;
+    case 4: launch<4>(cx, cy, cz, cl, offx, offy, offz, q, R, M, sem_th, scale, tx, ty, tz, tl, d2, launches, s); break;
+    case 8: launch<8>(cx, cy, cz, cl, offx, offy, offz, q, R, M, sem_th, scale, tx, ty, tz, tl, d2, launches, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -8,8 +8,12 @@ One step (odometry_step) runs, as in the reference's sageICP.cpp:
     prediction -> semantic ICP -> solve health guard -> map insert ->
     distance cull
 
-on fixed-capacity tensors of one device, and SageICP wraps it with the
-host-side padding, the trajectory log and the chunked offline mode. A
+on fixed-capacity tensors of one device. make_step, make_step_packed
+and make_chunk_step (DeviceStep) run it as a device program, the JAX
+package's jitted steps: the state donated and updated in place, the ICP
+loop on the device, and on the card the frame captured as CUDA graphs.
+SageICP wraps that step with the host-side padding, the trajectory log
+and the chunked offline mode. A
 scan goes to the device as one packed (cap, 4|5) buffer: xyz, label and,
 with deskew on, a timestamp lane; float32, or int16 with
 quantized_scan_upload. The configuration and presets are this package's
@@ -21,6 +25,7 @@ trajectory and the map are the same as without it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import NamedTuple
@@ -33,8 +38,10 @@ from sage_icp_tpu_torch.ops import correspondence_fast as cf
 from sage_icp_tpu_torch.ops import dynamic_filter as dyn
 from sage_icp_tpu_torch.ops import geometry as geo
 from sage_icp_tpu_torch.ops import hashmap as hm
+from sage_icp_tpu_torch.ops import icp_kernel as ik
 from sage_icp_tpu_torch.ops import registration as reg
 from sage_icp_tpu_torch.ops import scan as scan_ops
+from sage_icp_tpu_torch.ops.constants import device_constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,7 +188,8 @@ def _eye(device) -> torch.Tensor:
 
 
 def _i32(v, device) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.int32, device=device)
+    """A fresh 0-dim int32 (a fill on the device, no upload)."""
+    return torch.full((), v, dtype=torch.int32, device=device)
 
 
 def check_dense_grid(config: SageConfig) -> None:
@@ -229,7 +237,7 @@ def _adaptive_sigma(ts: ThresholdState, has_moved, config: SageConfig):
     take = has_moved & (err > config.min_motion_th)
     sse = torch.where(take, ts.sse + err * err, ts.sse)
     n = torch.where(take, ts.num_samples + 1, ts.num_samples)
-    init = torch.tensor(config.initial_threshold, dtype=sse.dtype, device=sse.device)
+    init = device_constant(config.initial_threshold, sse.dtype, sse.device)
     adaptive = torch.where(n < 1, init, torch.sqrt(sse / torch.clamp(n, min=1).to(sse.dtype)))
     sigma = torch.where(has_moved, adaptive, init)
     return sigma, ThresholdState(ts.model_deviation, sse, n)
@@ -239,7 +247,7 @@ def voxelize(points, valid, config: SageConfig):
     """Double downsample: the map frame at 0.5x the group voxel sizes, the
     ICP sources at a further 1.5x. Returns ((source, source_valid),
     (frame, frame_valid), truncated)."""
-    sizes = torch.tensor(config.voxel_size, dtype=points.dtype, device=points.device)
+    sizes = device_constant(config.voxel_size, points.dtype, points.device)
     frame, frame_valid, t1 = scan_ops.voxel_downsample(
         points, valid, config.voxel_labels, sizes, 0.5, config.frame_capacity)
     source, source_valid, t2 = scan_ops.voxel_downsample(
@@ -292,26 +300,35 @@ def prepare_icp_inputs(state: OdomState, points, valid, timestamps, config: Sage
                 dyn_overflow=dyn_overflow, lmk_dropped=lmk_dropped)
 
 
-def run_icp(map_state, prep: dict, config: SageConfig, mesh=None) -> reg.IcpResult:
-    """max_corr_dist = 3 sigma, robust kernel = sigma / 3. With a mesh
-    (parallel.sharding.Mesh) the GN rows are split across its ranks."""
-    fast_params = dict(
+def _fast_params(config: SageConfig):
+    return dict(
         unique_voxel_rows=config.corr_unique_voxel_rows,
         queries_per_voxel=config.corr_queries_per_voxel,
         overflow_rows=config.corr_overflow_rows,
     ) if _fast_ok(config) else None
+
+
+def _icp_args(map_state, prep: dict, config: SageConfig):
+    """max_corr_dist = 3 sigma, robust kernel = sigma / 3 (divided on the
+    device by a device 3, as a true division), both left on the device."""
     sigma = prep["sigma"]
+    return (map_state, prep["source"], prep["source_valid"], prep["initial_guess"], config.voxel_size_map,
+            3.0 * sigma, sigma / device_constant(3.0, sigma.dtype, sigma.device), config.sem_th)
+
+
+def run_icp(map_state, prep: dict, config: SageConfig, mesh=None) -> reg.IcpResult:
+    """The ICP solve of prepare_icp_inputs' frame. With a mesh
+    (parallel.sharding.Mesh) the GN rows are split across its ranks."""
     return reg.register_frame(
-        map_state, prep["source"], prep["source_valid"], prep["initial_guess"], config.voxel_size_map,
-        3.0 * sigma, sigma / 3.0, config.sem_th, max_iterations=config.max_icp_iterations,
-        probe_depth=config.probe_depth, fast_params=fast_params, tables=prep["tables"], mesh=mesh,
+        *_icp_args(map_state, prep, config), max_iterations=config.max_icp_iterations,
+        probe_depth=config.probe_depth, fast_params=_fast_params(config), tables=prep["tables"], mesh=mesh,
     )
 
 
 def basic_label_mask(config: SageConfig, device, num_labels: int = 260) -> torch.Tensor:
-    m = torch.zeros((num_labels,), dtype=torch.bool, device=device)
-    m[list(config.basic_parts_labels)] = True
-    return m
+    """(num_labels,) bool, True for the basic-class labels; built once
+    per device (ops/constants.py)."""
+    return device_constant([lab in config.basic_parts_labels for lab in range(num_labels)], torch.bool, device)
 
 
 def odometry_step(state: OdomState, points, valid, timestamps, config: SageConfig, mesh=None,
@@ -321,20 +338,30 @@ def odometry_step(state: OdomState, points, valid, timestamps, config: SageConfi
     [0, 1], read only with config.deskew. Returns (new_state, pose (4, 4),
     aux, landmark_cells_dropped): the last, 0-dim int32, is the dynamic
     filter's landmark cells beyond its capacity, a drop the JAX package
-    does not count (kept out of StepAux, whose fields are JAX's). The ICP
-    loop waits for the device at its start and once per iteration
-    (ops/registration.py).
+    does not count (kept out of StepAux, whose fields are JAX's). The
+    state is not modified (make_step's step updates its state in place).
+    The host reads the ICP loop's status once per block of iterations
+    (ops/registration.py) and nothing else.
 
     mesh (parallel.sharding.Mesh): every rank steps the whole scan; the
     GN rows and, with shard_insert, the insert's policy rows are split
     across the ranks (parallel/sharding.py)."""
-    dev = points.device
     prep = prepare_icp_inputs(state, points, valid, timestamps, config)
+    icp = run_icp(state.map, prep, config, mesh)
+    return finish_step(state, prep, icp, config, mesh, shard_insert)
+
+
+def finish_step(state: OdomState, prep: dict, icp: reg.IcpResult, config: SageConfig, mesh=None,
+                shard_insert: bool = True, in_place: bool = False):
+    """Everything of the step after the ICP solve: the solve-health guard,
+    the map insert and cull, the new state and the aux. Returns
+    odometry_step's (new_state, pose, aux, landmark_cells_dropped).
+    in_place: state.map is a donated map (hashmap.donated), updated in
+    place; the returned state's other fields are new tensors."""
+    dev = icp.pose.device
     source_valid = prep["source_valid"]
     frame_ds, frame_valid = prep["frame_ds"], prep["frame_valid"]
     initial_guess = prep["initial_guess"]
-
-    icp = run_icp(state.map, prep, config, mesh)
     # solve-health guard: a non-finite or non-orthonormal pose, or a
     # finite solve that matched almost nothing, coasts on the motion
     # model and skips this frame's insert; after reject_streak_limit
@@ -357,9 +384,9 @@ def odometry_step(state: OdomState, points, valid, timestamps, config: SageConfi
         config.voxel_size_map, config.basic_points_per_voxel, basic_label_mask(config, dev),
         max_incoming_per_voxel=config.max_incoming_per_voxel, probe_depth=config.probe_depth,
         unique_voxel_capacity=min(config.insert_unique_capacity, config.frame_capacity),
-        tables=prep["tables"], mesh=mesh if shard_insert else None,
+        tables=prep["tables"], mesh=mesh if shard_insert else None, in_place=in_place,
     )
-    new_map = hm.remove_far(new_map, new_pose[:3, 3], config.local_map_range)
+    new_map = hm.remove_far(new_map, new_pose[:3, 3], config.local_map_range, in_place=in_place)
 
     first = state.num_poses == 0
     new_state = OdomState(
@@ -373,8 +400,8 @@ def odometry_step(state: OdomState, points, valid, timestamps, config: SageConfi
     )
     aux = StepAux(
         sigma=prep["sigma"],
-        icp_iterations=_i32(icp.iterations, dev),
-        num_correspondences=_i32(icp.num_correspondences, dev),
+        icp_iterations=icp.iterations,
+        num_correspondences=icp.num_correspondences,
         num_source=num_source,
         num_frame_ds=frame_valid.sum(dtype=torch.int32),
         corr_dropped=icp.dropped_queries,
@@ -440,20 +467,21 @@ def _fold_aux(totals: StepAux | None, aux: StepAux) -> StepAux:
 
 def chunk_step(state: OdomState, scans: torch.Tensor, config: SageConfig, mesh=None):
     """Offline mode: (state, scans (W, cap, 4|5) on the device) -> (state',
-    poses (W, 4, 4) on the device, per-frame ICP iterations (list of W
-    ints), aux aggregated over the chunk: drop counters summed, occupancy
-    maxed, sigma/iterations/correspondences of the last frame), landmark
-    cells dropped over the chunk. The W steps are the single-frame steps
-    in order, on one upload (sharded on `mesh` when given)."""
+    poses (W, 4, 4) on the device, per-frame ICP iterations ((W,) int32 on
+    the device), aux aggregated over the chunk: drop counters summed,
+    occupancy maxed, sigma/iterations/correspondences of the last frame),
+    landmark cells dropped over the chunk. The W steps are the
+    single-frame steps in order, on one upload (sharded on `mesh` when
+    given)."""
     poses, iters, agg, lmk_dropped = [], [], None, 0
     for pts in scans:
         p, valid, ts = _split_packed(pts)
         state, pose, aux, lmk = odometry_step(state, p, valid, ts, config, mesh)
         poses.append(pose)
-        iters.append(int(aux.icp_iterations))
+        iters.append(aux.icp_iterations)
         agg = _fold_aux(agg, aux)
         lmk_dropped = lmk_dropped + lmk
-    return state, torch.stack(poses), iters, agg, lmk_dropped
+    return state, torch.stack(poses), torch.stack(iters), agg, lmk_dropped
 
 
 def resolve_device(device=None) -> torch.device:
@@ -465,17 +493,270 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def _small_fields(state: OdomState) -> list:
+    """The state's tensors other than the map, in a fixed order."""
+    return [state.last_pose, state.prev_pose, state.first_pose, state.num_poses, *state.threshold,
+            state.reject_streak]
+
+
+def _zero_aux(device) -> StepAux:
+    return StepAux(*[torch.zeros((), dtype=torch.float32 if f == "sigma" else torch.int32, device=device)
+                     for f in StepAux._fields])
+
+
+def _fold_into(totals: StepAux, aux: StepAux) -> None:
+    """_fold_aux in place on zero-started totals (the same values: every
+    occupancy stat is >= 0)."""
+    for f, t, a in zip(StepAux._fields, totals, aux):
+        t.copy_(a if f in _AUX_LAST else torch.maximum(t, a) if f in _AUX_MAX else t + a)
+
+
+def _capture_graph(fn, stream: torch.cuda.Stream) -> torch.cuda.CUDAGraph:
+    """fn's launches, captured on `stream` (run by replay()). The stream is
+    the step's own: torch.cuda.graph's default capture stream is made
+    once a process, on the device current then, and a capture on that
+    stream would switch to its device."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    return graph
+
+
+def on_device(device):
+    """The context that makes `device` current for the kernels' launches
+    (cuda_lib.call): torch.cuda.device for a card, nothing for the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+class DeviceStep:
+    """The device-resident odometry step behind make_step,
+    make_step_packed, make_chunk_step and SageICP on one device.
+
+    The state lives in the step's own buffers and is updated in place
+    (the map through hashmap.donated): the counterpart of the JAX step's
+    donated state. A state the step did not return is copied in once. The
+    frame's inputs are copied into fixed input buffers, and the ICP loop
+    stays on the device (registration.IcpLoop): the host reads its status
+    once per block of iterations and nothing else.
+
+    graph=True (a CUDA device): the first call runs the frame eagerly on
+    a side stream, which builds the kernels, their scratch and every
+    constant; then four pieces are captured as CUDA graphs and replayed
+    on every later frame:
+        prepare   preprocess, filter, deskew, downsample, threshold,
+                  prediction, probe tables, the first row setup and the
+                  first block of ICP iterations;
+        block     a block of ICP iterations;
+        reanchor  the rows rebuilt at the current pose, then a block;
+        finish    guard, renormalize, insert, cull, the state, the aux
+                  and the running totals.
+    A failed capture raises; nothing falls back. graph=False runs the same
+    pieces eagerly (the counterpart of jit=False), on any device. Every
+    call runs with the step's device current.
+
+    mesh (parallel.sharding.Mesh): the GN rows and, with shard_insert,
+    the insert's policy rows are split across its ranks, as in
+    odometry_step; such a step runs eagerly (its collectives are not
+    captured).
+
+    The returned pose, aux and totals are the step's own tensors, valid
+    until the next call. Running totals (`totals`, `lmk_total`) fold every
+    frame as SageICP.aux_totals does; `reset_totals` zeroes them."""
+
+    def __init__(self, config: SageConfig, device=None, graph: bool = True, packed: bool = True, mesh=None,
+                 shard_insert: bool = True):
+        self.config = config
+        self.device = resolve_device(device)
+        if graph and mesh is not None:
+            raise ValueError("a sharded step runs eagerly (its collectives are not captured): pass graph=False")
+        self.mesh, self.shard_insert = mesh, shard_insert
+        if graph and self.device.type != "cuda":
+            raise ValueError(f"graph=True captures CUDA graphs and needs a CUDA device, not {self.device}: "
+                             "pass graph=False")
+        self.fast_params = _fast_params(config)
+        if graph and self.fast_params is None:
+            raise ValueError("graph=True needs the frozen-rows ICP (use_fast_correspondences on a supported "
+                             "range): the reference-shaped search loops on the host; pass graph=False")
+        self.graph, self.packed = graph, packed
+        geo.pin_full_fp32()
+        self.state: OdomState | None = None
+        self._input: list | None = None
+        self._graphs: dict | None = None
+        self.totals, self.chunk_totals = _zero_aux(self.device), _zero_aux(self.device)
+        self.lmk_total = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.chunk_lmk = torch.zeros((), dtype=torch.int32, device=self.device)
+
+    def reset_totals(self) -> None:
+        torch._foreach_zero_([*self.totals, self.lmk_total])
+
+    def _adopt(self, state: OdomState) -> None:
+        if state is self.state:
+            return
+        if self.state is None:
+            small = [t.to(self.device).clone() for t in _small_fields(state)]
+            self.state = OdomState(hm.donated(hm.MapState(*[None if t is None else t.to(self.device)
+                                                           for t in state.map])),
+                                   *small[:4], ThresholdState(*small[4:7]), small[7])
+            return
+        hm.copy_into(self.state.map, state.map)
+        for d, s in zip(_small_fields(self.state), _small_fields(state)):
+            d.copy_(s)
+
+    def _load(self, inputs) -> None:
+        if self._input is None:
+            self._input = [torch.empty(x.shape, dtype=x.dtype, device=self.device) for x in inputs]
+        for d, x in zip(self._input, inputs):
+            if x.shape != d.shape or x.dtype != d.dtype:
+                raise ValueError(f"the step's input is {tuple(d.shape)} {d.dtype}, got {tuple(x.shape)} {x.dtype}")
+            d.copy_(x)
+
+    def _prepare(self) -> None:
+        cfg = self.config
+        pts, valid, ts = _split_packed(self._input[0]) if self.packed else self._input
+        self._prep = prep = prepare_icp_inputs(self.state, pts, valid, ts, cfg)
+        args = _icp_args(self.state.map, prep, cfg)
+        if self.fast_params is None:
+            self._loop = None
+            self._icp = reg.register_frame(*args, max_iterations=cfg.max_icp_iterations,
+                                           probe_depth=cfg.probe_depth, tables=prep["tables"], mesh=self.mesh)
+            return
+        self._loop = reg.IcpLoop(*args, cfg.max_icp_iterations, cfg.probe_depth, self.fast_params, prep["tables"],
+                                 self.mesh)
+        self._loop.block()
+
+    def _drive(self) -> None:
+        """Blocks (and re-anchors) until the loop is done: one status read
+        per block."""
+        loop, graphs = self._loop, self._graphs
+        while loop is not None and (s := loop.status()) != ik.DONE:
+            if graphs is not None:
+                graphs["reanchor" if s == ik.REANCHOR else "block"].replay()
+                continue
+            if s == ik.REANCHOR:
+                loop.reanchor()
+            loop.block()
+
+    def _finish(self) -> None:
+        icp = self._icp if self._loop is None else self._loop.result()
+        new, pose, aux, lmk = finish_step(self.state, self._prep, icp, self.config, self.mesh, self.shard_insert,
+                                          in_place=True)
+        for d, s in zip(_small_fields(self.state), _small_fields(new)):
+            d.copy_(s)
+        _fold_into(self.totals, aux)
+        _fold_into(self.chunk_totals, aux)
+        self.lmk_total.add_(lmk)
+        self.chunk_lmk.add_(lmk)
+        self._out = (pose, aux, lmk)
+
+    def _eager(self) -> None:
+        self._prepare()
+        self._drive()
+        self._finish()
+
+    def _capture(self) -> tuple:
+        """The first frame, eagerly on a side stream; then the captures.
+        Returns the first frame's outputs."""
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._eager()
+        main.wait_stream(side)
+        out = self._out
+        graphs = {"prepare": _capture_graph(self._prepare, side)}
+        graphs["block"] = _capture_graph(self._loop.block, side)
+        graphs["reanchor"] = _capture_graph(lambda: (self._loop.reanchor(), self._loop.block()), side)
+        graphs["finish"] = _capture_graph(self._finish, side)
+        self._graphs = graphs
+        return out
+
+    def __call__(self, state: OdomState, *inputs):
+        """(state, inputs...) -> (state, pose, aux, landmark_cells_dropped)."""
+        with on_device(self.device):
+            self._adopt(state)
+            self._load(inputs)
+            if not self.graph:
+                self._eager()
+                out = self._out
+            elif self._graphs is None:
+                out = self._capture()
+            else:
+                self._graphs["prepare"].replay()
+                self._drive()
+                self._graphs["finish"].replay()
+                out = self._out
+        return (self.state, *out)
+
+    def chunk(self, state: OdomState, scans: torch.Tensor):
+        """W packed frames (W, cap, 4|5) -> (state, poses (W, 4, 4),
+        iterations (W,) int32, the chunk's aggregated aux, its landmark
+        cells dropped), chunk_step's values."""
+        W = scans.shape[0]
+        poses = torch.empty((W, 4, 4), dtype=torch.float32, device=self.device)
+        iters = torch.empty((W,), dtype=torch.int32, device=self.device)
+        torch._foreach_zero_([*self.chunk_totals, self.chunk_lmk])
+        for w in range(W):
+            state, pose, aux, _ = self(state, scans[w])
+            poses[w].copy_(pose)
+            iters[w].copy_(aux.icp_iterations)
+        return state, poses, iters, self.chunk_totals, self.chunk_lmk
+
+
+def make_step(config: SageConfig, graph: bool = True, device=None) -> DeviceStep:
+    """The device-resident step: step(state, points, valid, timestamps)
+    -> (state', pose, aux, landmark_cells_dropped), odometry_step's values,
+    with the state updated in place (DeviceStep). graph=True captures it
+    as CUDA graphs (a CUDA device only; on the CPU it raises), graph=False
+    runs it eagerly: the counterparts of the JAX package's jit=True and
+    jit=False."""
+    return DeviceStep(config, device, graph, packed=False)
+
+
+def make_step_packed(config: SageConfig, graph: bool = True, device=None) -> DeviceStep:
+    """make_step from one packed (scan_capacity, 4|5) buffer, float32 or
+    int16 (pad_chunk's rows): step(state, packed) -> (state', pose, aux,
+    landmark_cells_dropped)."""
+    return DeviceStep(config, device, graph, packed=True)
+
+
+def make_chunk_step(config: SageConfig, chunk: int, graph: bool = True, device=None):
+    """step(state, scans (chunk, scan_capacity, 4|5)) -> (state', poses
+    (chunk, 4, 4), iterations (chunk,) int32, aux aggregated over the
+    chunk as chunk_step does (the last frame's sigma, iterations and
+    correspondences, occupancy maxed, counters summed), landmark cells
+    dropped over the chunk), on make_step_packed's step."""
+    step = DeviceStep(config, device, graph, packed=True)
+
+    def run(state: OdomState, scans: torch.Tensor):
+        if scans.shape[0] != chunk:
+            raise ValueError(f"a chunk step of {chunk} frames got {scans.shape[0]}")
+        return step.chunk(state, scans)
+
+    return run
+
+
 class SageICP:
     """Stateful wrapper: pads scans to the fixed capacity, steps the
     pipeline on `device` (default the card) and keeps the trajectory and
-    running totals of the per-frame counters (no per-frame aux log)."""
+    running totals of the per-frame counters (no per-frame aux log).
 
-    def __init__(self, config: SageConfig | str = "kitti", device=None):
+    It runs the device-resident step (DeviceStep): captured as CUDA graphs
+    on the card (graph=None or True), eager on the CPU (graph=None or
+    False); graph=True on the CPU raises. With a mesh
+    (parallel.sharding.ShardedSageICP) the step is sharded and eager."""
+
+    def __init__(self, config: SageConfig | str = "kitti", device=None, graph: bool | None = None):
         if isinstance(config, str):
             config = PRESETS[config]
         self.config = config
         self.device = resolve_device(device)
         self.mesh = None  # parallel.sharding.ShardedSageICP sets its mesh
+        if graph is None:
+            graph = self.device.type == "cuda" and _fast_ok(config)
+        if graph and self.device.type != "cuda":
+            raise ValueError(f"graph=True captures CUDA graphs and needs a CUDA device, not {self.device}")
+        self.graph = bool(graph)
+        self._step: DeviceStep | None = None
         geo.pin_full_fp32()
         self.reinitialize()
 
@@ -484,10 +765,15 @@ class SageICP:
         self.state = init_state(self.config, self.device)
         self.poses: list = []  # (4, 4) numpy, or device tensors (4, 4) / (W, 4, 4)
         self.timings: list[float] = []
-        self.icp_iters: list[int] = []
+        self._iters: list = []  # per-frame iterations, (n,) int32 device tensors
         self._last_aux = None
-        self._totals = None
-        self._lmk_dropped = 0
+        if self._step is not None:
+            self._step.reset_totals()
+
+    def _device_step(self) -> DeviceStep:
+        if self._step is None:
+            self._step = DeviceStep(self.config, self.device, self.graph, packed=True, mesh=self.mesh)
+        return self._step
 
     def pad_chunk(self, scans: list, timestamps: list | None = None) -> np.ndarray:
         """(W, scan_capacity, 4|5) packed host buffer: float32 rows padded
@@ -514,11 +800,11 @@ class SageICP:
                 buf[i, :n] = rows
         return buf
 
-    def _record(self, aux: StepAux, iters: list[int], lmk_dropped) -> None:
+    def _record(self, aux: StepAux, iters: torch.Tensor) -> None:
+        """After a step: the last call's aux and the per-frame iterations
+        (the step keeps the running totals)."""
         self._last_aux = aux
-        self._totals = _fold_aux(self._totals, aux)
-        self._lmk_dropped = self._lmk_dropped + lmk_dropped
-        self.icp_iters.extend(iters)
+        self._iters.append(iters.reshape(-1))
 
     def register_frame(self, points: np.ndarray, timestamps: np.ndarray | None = None,
                        block: bool = True):
@@ -528,11 +814,9 @@ class SageICP:
         waiting; trajectory() fetches it."""
         buf = self.pad_chunk([points], None if timestamps is None else [timestamps])[0]
         t0 = time.perf_counter()
-        pts, valid, ts = _split_packed(torch.from_numpy(buf).to(self.device))
-        self.state, pose, aux, lmk = odometry_step(self.state, pts, valid, ts, self.config, self.mesh)
-        self._record(aux, [int(aux.icp_iterations)], lmk)
-        if block:
-            pose = pose.cpu().numpy()
+        self.state, pose, aux, _ = self._device_step()(self.state, torch.from_numpy(buf))
+        self._record(aux, aux.icp_iterations.clone())
+        pose = pose.cpu().numpy() if block else pose.clone()
         self.timings.append(time.perf_counter() - t0)
         self.poses.append(pose)
         return pose
@@ -547,10 +831,17 @@ class SageICP:
         if isinstance(scans, list):
             scans = self.pad_chunk(scans, timestamps)
         dev_scans = torch.as_tensor(scans).to(self.device)
-        self.state, poses, iters, aux, lmk = chunk_step(self.state, dev_scans, self.config, self.mesh)
-        self._record(aux, iters, lmk)
+        self.state, poses, iters, aux, _ = self._device_step().chunk(self.state, dev_scans)
+        self._record(aux, iters)
         self.poses.append(poses)
         return poses
+
+    @property
+    def icp_iters(self) -> list[int]:
+        """Per-frame ICP iteration counts, fetched in one transfer."""
+        if not self._iters:
+            return []
+        return torch.cat(self._iters).tolist()
 
     def iteration_counts(self) -> np.ndarray:
         """(N,) per-frame ICP iteration counts."""
@@ -565,13 +856,13 @@ class SageICP:
         """Counters over every frame since the last reinitialize: drop
         counters summed, occupancy maxed, sigma/iterations/correspondences
         of the last frame."""
-        return StepAux(*[np.asarray(a.cpu()) for a in self._totals])
+        return StepAux(*[np.asarray(a.cpu()) for a in self._device_step().totals])
 
     def landmark_cells_dropped(self) -> int:
         """Landmark cells the dynamic filter dropped beyond its capacity,
         summed over every frame since the last reinitialize (a silent drop
         of the JAX package, counted here outside StepAux)."""
-        return int(self._lmk_dropped)
+        return int(self._device_step().lmk_total)
 
     def trajectory(self) -> np.ndarray:
         """(N, 4, 4) poses; the poses held on the device come over in one

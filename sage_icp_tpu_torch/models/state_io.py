@@ -38,7 +38,7 @@ def state_to_numpy(state) -> dict:
             if hasattr(leaf, "_fields"):
                 walk(leaf, key + ".")
             elif torch.is_tensor(leaf):
-                out[key] = leaf.detach().cpu().numpy()
+                out[key] = leaf.detach().to("cpu", copy=True).numpy()  # a snapshot: steps update in place
             else:
                 out[key] = np.asarray(leaf)
 

@@ -9,8 +9,15 @@ ctypes: every pointer and the stream are c_void_p, and each entry point
 returns cudaGetLastError() of its launch, which `call` turns into an
 exception.
 
-`LAUNCHES` counts the launches of each kernel wrapper; a run resets it
-with `reset_launches` and reads it to show which kernels a path used.
+Launches are counted on the device: every wrapper passes its kernel a
+pointer to the kernel's own 64-bit counter on the launching device, and
+the kernel adds one when it runs (csrc/launch_count.cuh). A launch
+replayed from a captured CUDA graph (models/pipeline.py) is therefore
+counted as one made from the host, and a capture, which runs nothing,
+counts nothing. A run zeroes the counters with `reset_launches` and
+reads them with `launches()` to show which kernels a path ran. A wrapper
+launches on the current stream of its tensors' device, which must be
+the current device.
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("semantic_nn.cu", "gn_iteration.cu", "retention_policy.cu", "radius_count.cu", "bitonic_sort.cu")
+SOURCES = ("semantic_nn.cu", "gn_iteration.cu", "retention_policy.cu", "radius_count.cu", "bitonic_sort.cu",
+           "icp_step.cu")
 
 # --fmad=false: no contraction of a*b+c into an FMA, so distances round
 # exactly as in the plain PyTorch versions (a near-tie would otherwise
@@ -36,22 +44,43 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES: dict[str, int] = {
-    "fused_semantic_nn": 0,
-    "fused_gn_iteration": 0,
-    "apply_policy": 0,
-    "radius_count": 0,
-    "bitonic_sort_planes": 0,
-}
+KERNELS = ("fused_semantic_nn", "fused_gn_iteration", "apply_policy", "radius_count", "bitonic_sort_planes",
+           "icp_step")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], object] = {}
+_counters: dict = {}  # device -> (len(KERNELS),) int64 launch counters on it
 BUILD_LOG: dict[str, str] = {}  # source -> nvcc/ptxas output of its build
 
 
+def _counter(kernel: str, device) -> ctypes.c_void_p:
+    """The address of `kernel`'s launch counter on `device`. The counters
+    are made at a device's first launch, which must not be inside a
+    capture (the graph would own them)."""
+    import torch
+
+    if device not in _counters:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the launch counters are made at a device's first launch, not during a capture")
+        _counters[device] = torch.zeros((len(KERNELS),), dtype=torch.int64, device=device)
+    c = _counters[device]
+    return ctypes.c_void_p(c.data_ptr() + KERNELS.index(kernel) * c.element_size())
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Zero every launch counter (in stream order on each device)."""
+    for c in _counters.values():
+        c.zero_()
+
+
+def launches() -> dict[str, int]:
+    """Kernel launches since reset_launches, summed over this process's
+    devices: one host read per device, after the launches' streams."""
+    total = dict.fromkeys(KERNELS, 0)
+    for c in _counters.values():
+        for k, v in zip(KERNELS, c.tolist()):
+            total[k] += v
+    return total
 
 
 def _nvcc() -> str:
@@ -116,12 +145,18 @@ def function(source: str, name: str, argtypes) -> object:
     return _fns[key]
 
 
-def call(kernel: str, fn, *args) -> None:
-    """Launch through `fn`, raise on a CUDA error, count the launch."""
-    rc = fn(*args)
+def call(kernel: str, fn, device, *args) -> None:
+    """Launch through `fn` on `device` (the current device) and its
+    current stream: fn(*args, launch counter, stream). Raises on a CUDA
+    error."""
+    import torch
+
+    if device.index != torch.cuda.current_device():
+        raise RuntimeError(f"{kernel}: the tensors are on {device} but the current device is "
+                           f"cuda:{torch.cuda.current_device()}: run under torch.cuda.device({device})")
+    rc = fn(*args, _counter(kernel, device), stream_ptr(device))
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
-    LAUNCHES[kernel] += 1
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -39,6 +39,7 @@ import torch
 
 from sage_icp_tpu_torch.ops import hashmap as hm
 from sage_icp_tpu_torch.ops import nn_kernels
+from sage_icp_tpu_torch.ops.constants import device_constant
 from sage_icp_tpu_torch.ops.scan import INVALID_COORD, label_in_set, trunc_div
 
 CLUSTER_TOLERANCE = 0.5  # reference Preprocessing.cpp:133
@@ -231,7 +232,7 @@ def filter_dynamic_vehicles(points, valid, config):
     lmk_total = torch.zeros((G + 1,), dtype=torch.int32, device=dev)
     lmk_total.index_add_(0, pcomp, n_near)
 
-    dy_th = torch.tensor(config.dynamic_vehicle_filter_th, dtype=torch.float32, device=dev)
+    dy_th = device_constant(config.dynamic_vehicle_filter_th, torch.float32, dev)
     static_cluster = (sizes >= MIN_CLUSTER_SIZE) & (
         lmk_total.to(torch.float32) > dy_th * sizes.to(torch.float32))
     keep_sorted = vlive & static_cluster[torch.clamp(pcomp, max=G)]

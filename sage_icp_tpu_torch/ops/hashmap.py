@@ -28,11 +28,15 @@ by ops.policy_kernel.apply_policy:
   first stored label-0 point; critical class -> append while count < K,
   else overwrite the first stored label-0 point.
 
-Updates are functional, like the reference: insert and remove_far return
-new tensors and leave the input state untouched. The one large copy per
-frame is the (C, 4, K) block buffer (42 MB at the city preset, tens of
-microseconds on the card); with the dense index, the 32 MiB grid is
-copied once by insert and once by remove_far.
+Updates are functional by default, like the reference: insert and
+remove_far return new tensors and leave the input state untouched. The
+one large copy per frame is the (C, 4, K) block buffer (42 MB at the city
+preset, tens of microseconds on the card); with the dense index, the 32
+MiB grid is copied once by insert and once by remove_far. With
+in_place=True they update a donated map (`donated`: every tensor the
+first rows of a buffer with one spare row, where dropped writes land) in
+place and copy nothing, the counterpart of the JAX step's donated state;
+every read of the old map comes before the first write.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from typing import NamedTuple
 import torch
 
 from sage_icp_tpu_torch.ops import policy_kernel
+from sage_icp_tpu_torch.ops.constants import device_constant
 from sage_icp_tpu_torch.ops.scan import INVALID_COORD, SORT_SENTINEL, trunc_div
 
 DEFAULT_PROBE_DEPTH = 16
@@ -98,7 +103,7 @@ def create(capacity: int, points_per_voxel: int, device=None, dtype=torch.float3
     grid = None
     if dense_grid:
         grid = torch.zeros((GRID_SIZE, 2), dtype=torch.int32, device=device)
-        grid[:, 0] = -1
+        grid[:, 0].fill_(-1)
     return MapState(
         keys=torch.full((capacity, 3), EMPTY_KEY, dtype=torch.int32, device=device),
         counts=torch.zeros((capacity,), dtype=torch.int32, device=device),
@@ -144,13 +149,39 @@ def _grid_with_spare(grid: torch.Tensor) -> torch.Tensor:
     return torch.cat([grid, grid[:1]])
 
 
-def set_rows(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor, write: torch.Tensor) -> torch.Tensor:
+def set_rows(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor, write: torch.Tensor,
+             in_place: bool = False) -> torch.Tensor:
     """Functional dst.at[idx].set(src) for the rows where `write` holds;
-    the others are dropped (they land in a spare row that is cut off)."""
+    the others are dropped (they land in a spare row that is cut off).
+    in_place: dst is a donated map tensor, written in place, and returned."""
     n = dst.shape[0]
-    out = torch.cat([dst, dst[:1]])
+    out = _spare(dst) if in_place else torch.cat([dst, dst[:1]])
     out[torch.where(write, idx, n).long()] = src
     return out[:n]
+
+
+def _spare(t: torch.Tensor) -> torch.Tensor:
+    """The buffer behind a donated map tensor: t's rows and one spare."""
+    base = t._base
+    if (base is None or base.data_ptr() != t.data_ptr() or not t.is_contiguous()
+            or base.numel() != (t.shape[0] + 1) * (t.numel() // max(t.shape[0], 1))):
+        raise ValueError("in_place needs a donated map (hashmap.donated): a tensor with a spare row behind it")
+    return base.view((t.shape[0] + 1, *t.shape[1:]))
+
+
+def donated(state: MapState) -> MapState:
+    """A copy of the map for in-place updates: each tensor the first rows
+    of a buffer with one spare row."""
+    return MapState(*[None if t is None else torch.cat([t, t[:1]])[: t.shape[0]] for t in state])
+
+
+def copy_into(dst: MapState, src: MapState) -> None:
+    """Overwrite dst's tensors with src's (same layout), in place."""
+    if (dst.grid is None) != (src.grid is None):
+        raise ValueError("copy_into: one map has the dense index and the other has not")
+    for d, s in zip(dst, src):
+        if d is not None:
+            d.copy_(s)
 
 
 def quantize_points(points: torch.Tensor, vkeys: torch.Tensor, voxel_size) -> torch.Tensor:
@@ -239,6 +270,7 @@ def insert(
     unique_voxel_capacity: int | None = None,
     tables=None,
     mesh=None,
+    in_place: bool = False,
 ):
     """AddPoints with the reference's per-block retention policy.
 
@@ -246,6 +278,7 @@ def insert(
     True for the basic-class labels. tables: the frame's ProbeTables
     (correspondence_fast), else the map is probed with `lookup`.
     Returns (new MapState, InsertStats). Never synchronises the host.
+    in_place: `state` is a donated map, updated in place and returned.
 
     mesh (parallel.sharding.Mesh): the policy phase (the block and
     incoming gathers and the policy kernel) runs on this rank's U/n
@@ -294,7 +327,9 @@ def insert(
     # the lookup (a culled block revived in place keeps its key)
     pre = u_live & (slot_u >= 0)
     taken = torch.cat([state.counts > 0, torch.zeros(1, dtype=torch.bool, device=dev)])
-    taken[torch.where(pre, slot_u, cap).long()] = True
+    # index_fill_: a Python scalar assigned through an index would be
+    # uploaded from the host
+    taken.index_fill_(0, torch.where(pre, slot_u, cap).long(), True)
     uid = torch.arange(U, dtype=torch.int32, device=dev)
     claim = torch.empty((cap + 1,), dtype=torch.int32, device=dev)
     # All probe_depth rounds run: a round with nobody unresolved changes
@@ -308,13 +343,10 @@ def insert(
         claim.scatter_reduce_(0, torch.where(eligible, s, cap), uid, reduce="amin")
         won = eligible & (claim[s] == uid)
         slot_u = torch.where(won, s.to(torch.int32), slot_u)
-        taken[torch.where(won, s, cap)] = True
+        taken.index_fill_(0, torch.where(won, s, cap), True)
 
     newly = need_claim & (slot_u >= 0)
-    new_keys = set_rows(state.keys, slot_u, ukeys, newly)
-    new_counts = set_rows(state.counts, slot_u, torch.zeros_like(slot_u), newly)
     has_slot = u_live & (slot_u >= 0)
-
     grid = state.grid
     if grid is not None:
         # a re-claimed slot's previous owner (a culled voxel) may still
@@ -326,7 +358,11 @@ def insert(
         had_owner = newly & torch.any(old_keys != EMPTY_KEY, dim=-1)
         t_old = grid_index(old_keys)
         still_ours = grid[t_old.long(), 0] == slot_u
-        grid = _grid_with_spare(grid)
+    new_keys = set_rows(state.keys, slot_u, ukeys, newly, in_place)
+    new_counts = set_rows(state.counts, slot_u, torch.zeros_like(slot_u), newly, in_place)
+
+    if grid is not None:
+        grid = _spare(grid) if in_place else _grid_with_spare(grid)
         # index_fill_: a Python scalar assigned through an index would be
         # uploaded from the host
         grid[:, 0].index_fill_(0, torch.where(had_owner & still_ours, t_old, GRID_SIZE).long(), -1)
@@ -377,7 +413,7 @@ def insert(
         compact, cnt2 = _gather_rows(mesh, compact, cnt2)
     out = _insert_writeback(
         state, points2, compact, cnt2[:, 0], has_slot, slot_u, ukeys,
-        new_keys, new_counts, grid, voxel_size, cap, kmax, U,
+        new_keys, new_counts, grid, voxel_size, cap, kmax, U, in_place,
     )
     return out, stats
 
@@ -395,7 +431,7 @@ def _gather_rows(mesh, compact: torch.Tensor, counts: torch.Tensor):
 
 
 def _insert_writeback(state, points2, compact, ccounts, has_slot, slot_u, ukeys,
-                      new_keys, new_counts, grid, voxel_size, cap, kmax, U) -> MapState:
+                      new_keys, new_counts, grid, voxel_size, cap, kmax, U, in_place=False) -> MapState:
     """Write the policy-updated blocks back (slots are unique across live
     rows). The label plane is sanitised on the way out: lanes at or
     beyond the block's count get label -1, so the correspondence search
@@ -403,19 +439,24 @@ def _insert_writeback(state, points2, compact, ccounts, has_slot, slot_u, ukeys,
     kidx = torch.arange(kmax, device=compact.device)
     lab_plane = torch.where(kidx[None, :] < ccounts[:, None], compact[:, 3, :], -1).to(torch.int16)
     compact = torch.cat([compact[:, :3, :], lab_plane[:, None, :]], dim=1)
-    new_points = set_rows(points2, slot_u, compact.reshape(U, 4 * kmax), has_slot).reshape(cap, 4, kmax)
-    new_counts = set_rows(new_counts, slot_u, ccounts, has_slot)
+    if in_place:
+        set_rows(points2, slot_u, compact.reshape(U, 4 * kmax), has_slot, True)
+        new_points = state.points
+    else:
+        new_points = set_rows(points2, slot_u, compact.reshape(U, 4 * kmax), has_slot).reshape(cap, 4, kmax)
+    new_counts = set_rows(new_counts, slot_u, ccounts, has_slot, in_place)
     dt = state.first_pts.dtype
     first_world = compact[:, :3, 0].to(dt) * (voxel_size / QSCALE) + ukeys.to(dt) * voxel_size
-    new_first = set_rows(state.first_pts, slot_u, first_world, has_slot)
+    new_first = set_rows(state.first_pts, slot_u, first_world, has_slot, in_place)
     return MapState(keys=new_keys, counts=new_counts, points=new_points, first_pts=new_first, grid=grid)
 
 
-def remove_far(state: MapState, origin: torch.Tensor, max_distance) -> MapState:
+def remove_far(state: MapState, origin: torch.Tensor, max_distance, in_place: bool = False) -> MapState:
     """Erase blocks whose FIRST point lies farther than max_distance from
     origin: count 0, key EMPTY_KEY, first point INVALID_COORD, so no
     probe can match the stale block again; the dense index's cell of each
-    killed block is cleared while the block still owns it."""
+    killed block is cleared while the block still owns it. in_place:
+    `state` is a donated map, updated in place and returned."""
     d = state.first_pts - origin[None, :]
     d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
     kill = (state.counts > 0) & (d2 > max_distance * max_distance)
@@ -424,9 +465,14 @@ def remove_far(state: MapState, origin: torch.Tensor, max_distance) -> MapState:
     if grid is not None:
         t = grid_index(state.keys)
         still = grid[t.long(), 0] == torch.arange(state.capacity, dtype=torch.int32, device=t.device)
-        grid = _grid_with_spare(grid)
+        grid = _spare(grid) if in_place else _grid_with_spare(grid)
         grid[:, 0].index_fill_(0, torch.where(kill & still, t, GRID_SIZE).long(), -1)
         grid = grid[:GRID_SIZE]
+    if in_place:
+        state.counts.masked_fill_(kill, 0)
+        state.keys.masked_fill_(killn, EMPTY_KEY)
+        state.first_pts.masked_fill_(killn, INVALID_COORD)
+        return state
     return state._replace(
         counts=torch.where(kill, 0, state.counts),
         keys=torch.where(killn, EMPTY_KEY, state.keys),
@@ -461,7 +507,8 @@ NEIGHBOR_OFFSETS = [[i, j, k] for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (
 
 
 def neighbor_offsets(device=None) -> torch.Tensor:
-    return torch.tensor(NEIGHBOR_OFFSETS, dtype=torch.int32, device=device)
+    """(27, 3) int32, built once per device (ops/constants.py)."""
+    return device_constant(NEIGHBOR_OFFSETS, torch.int32, device)
 
 
 def get_correspondences(state: MapState, query, valid, voxel_size, max_correspondence_distance,

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from sage_icp_tpu_torch.ops import cuda_lib
+from sage_icp_tpu_torch.ops.constants import device_constant, device_scalar
 from sage_icp_tpu_torch.ops.scan import trunc_div
 
 BIG_D2 = 1.0e12  # true d2 reported for an invalid winner: fails any gate
@@ -37,9 +38,9 @@ SUPPORTED_P = (1, 2, 4, 8)
 _F = ctypes.c_float
 _V = ctypes.c_void_p
 _I = ctypes.c_int
-_NN_ARGTYPES = [_V] * 8 + [_I, _I, _I, _F, _F] + [_V] * 6
-_GN_ARGTYPES = [_V] * 12 + [_I, _V, _I, _I, _I, _F, _F, _F, _F, _F, _V, _V, _V, _V]
-_RC_ARGTYPES = [_V] * 5 + [_I, _I, _I, _F, _F, _V, _V]
+_NN_ARGTYPES = [_V] * 8 + [_I, _I, _I, _F, _F] + [_V] * 7
+_GN_ARGTYPES = [_V] * 12 + [_I, _V, _I, _I, _I, _F, _F, _F] + [_V] * 8
+_RC_ARGTYPES = [_V] * 5 + [_I, _I, _I, _F, _F] + [_V] * 3
 RC_MAX_SMEM = 232_448  # shared memory one block may take on an H100
 
 
@@ -93,10 +94,9 @@ def fused_semantic_nn(cx, cy, cz, cl, offx, offy, offz, queries, sem_th, scale):
     fn = cuda_lib.function("semantic_nn.cu", "sage_semantic_nn", _NN_ARGTYPES)
     p = cuda_lib.ptr
     cuda_lib.call(
-        "fused_semantic_nn", fn,
+        "fused_semantic_nn", fn, cx.device,
         p(cx), p(cy), p(cz), p(cl), p(offx), p(offy), p(offz), p(queries),
         R, M, P, float(sem_th), float(scale), *[p(o) for o in outs],
-        cuda_lib.stream_ptr(cx.device),
     )
     return tuple(outs)
 
@@ -133,36 +133,41 @@ def gn_load_bytes(M: int) -> int:
 # csrc/gn_iteration.cu kMaxBlocks: the GN grid is min(ceil(R / 8), this)
 # blocks, fixed by R alone, each writing one partial row
 GN_MAX_BLOCKS = 528
-# per device index: the ticket counter (zero between calls) and the
-# partial rows of the GN kernel
-_gn_scratch: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+# per device index: the ticket counter (zero between calls), the partial
+# rows of the GN kernel, and a status word of 0 (run) for callers that
+# pass none
+_gn_scratch: dict[int, tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
 
 
 def _gn_scratch_on(dev):
     if dev.index not in _gn_scratch:
         _gn_scratch[dev.index] = (torch.zeros((1,), dtype=torch.int32, device=dev),
-                                  torch.empty((GN_MAX_BLOCKS, N_SUMS), dtype=torch.float32, device=dev))
+                                  torch.empty((GN_MAX_BLOCKS, N_SUMS), dtype=torch.float32, device=dev),
+                                  torch.zeros((), dtype=torch.int32, device=dev))
     return _gn_scratch[dev.index]
 
 
 def fused_gn_iteration(cx, cy, cz, cl, offx, offy, offz, q0, origin, row_abs, used, T,
-                       sem_th, scale, voxel_size, max_corr, kernel_th, tile_map=None):
+                       sem_th, scale, voxel_size, max_corr, kernel_th, tile_map=None, status=None):
     """One fused Gauss-Newton iteration over the frozen rows.
 
     q0 (R, 4P) f32 setup queries [x y z label], world frame; origin (R, 3)
     f32 row voxel origins; row_abs (R, 3) int32 absolute row voxels; used
-    (R, P) int32; T (4, 4) f32 pose increment since setup, read on the
-    host (a CUDA T is brought over with .cpu(); the ICP loop keeps it on
-    the host); tile_map (ceil(R / TILE_ROWS),) int32, default_tile_map(used)
-    when None. Returns the (18,) f32 sums in N_SUMS order (deterministic).
-    On the card the call is one launch; its scratch (a ticket counter and
-    the blocks' partial rows) is cached per device, so calls on one device
-    run in stream order on one stream."""
+    (R, P) int32; T (4, 4) f32 pose increment since setup, max_corr and
+    kernel_th (0-dim f32) and status (0-dim int32, None = run) in device
+    memory: the kernel reads them there, so a captured launch replays
+    their current values (numbers for max_corr and kernel_th are built on
+    the device once). A status other than 0 makes the call a no-op that
+    leaves the output unwritten. tile_map (ceil(R / TILE_ROWS),) int32,
+    default_tile_map(used) when None. Returns the (18,) f32 sums in N_SUMS
+    order (deterministic). On the card the call is one launch; its
+    scratch (a ticket counter and the blocks' partial rows) is cached per
+    device, so calls on one device run in stream order on one stream."""
     if tile_map is None:
         tile_map = default_tile_map(used)
     if cuda_lib.on_cpu(cx):
         return gn_terms(cx, cy, cz, cl, offx, offy, offz, q0, origin, row_abs, used, T,
-                        sem_th, scale, voxel_size, max_corr, kernel_th, tile_map).sum(dim=1)
+                        sem_th, scale, voxel_size, max_corr, kernel_th, tile_map, status).sum(dim=1)
     dev = cx.device
     P = used.shape[1]
     R, M = _check_rows(cx, cy, cz, cl, offx, offy, offz, P)
@@ -176,35 +181,41 @@ def fused_gn_iteration(cx, cy, cz, cl, offx, offy, offz, q0, origin, row_abs, us
         if t.data_ptr() % width:
             raise ValueError(f"{name}: the kernel reads rows of {M} lanes {width} B at a time; "
                              f"the base address must be {width}-byte aligned")
-    T = T.detach().to("cpu", torch.float32)
-    if tuple(T.shape) != (4, 4):
-        raise ValueError(f"T: expected (4, 4), got {tuple(T.shape)}")
-    t12 = (_F * 12)(*T[:3].reshape(-1).tolist())
-    counter, partials = _gn_scratch_on(dev)
+    counter, partials, run = _gn_scratch_on(dev)
+    cuda_lib.check_cuda("T", T, torch.float32, (4, 4))
+    max_corr, kernel_th = (device_scalar(v, torch.float32, dev) for v in (max_corr, kernel_th))
+    status = run if status is None else status
+    for name, t, dtype in (("max_corr", max_corr, torch.float32), ("kernel_th", kernel_th, torch.float32),
+                           ("status", status, torch.int32)):
+        cuda_lib.check_cuda(name, t, dtype, ())
     out = torch.empty((N_SUMS,), dtype=torch.float32, device=dev)
     fn = cuda_lib.function("gn_iteration.cu", "sage_gn_iteration", _GN_ARGTYPES)
     p = cuda_lib.ptr
     cuda_lib.call(
-        "fused_gn_iteration", fn,
+        "fused_gn_iteration", fn, dev,
         p(cx), p(cy), p(cz), p(cl), p(offx), p(offy), p(offz), p(q0), p(origin),
-        p(row_abs), p(used), p(tile_map), TILE_ROWS, ctypes.cast(t12, _V), R, M, P,
-        float(sem_th), float(scale), float(voxel_size), float(max_corr), float(kernel_th),
-        p(partials), p(counter), p(out), cuda_lib.stream_ptr(dev),
+        p(row_abs), p(used), p(tile_map), TILE_ROWS, p(T), R, M, P,
+        float(sem_th), float(scale), float(voxel_size), p(max_corr), p(kernel_th), p(status),
+        p(partials), p(counter), p(out),
     )
     return out
 
 
 def gn_terms(cx, cy, cz, cl, offx, offy, offz, q0, origin, row_abs, used, T,
-             sem_th, scale, voxel_size, max_corr, kernel_th, tile_map):
+             sem_th, scale, voxel_size, max_corr, kernel_th, tile_map, status=None):
     """Plain version of the GN kernel before its reduction: the (18, R*P)
     per-slot terms whose row sums are the kernel's output. A dead tile
     reads tile_map's block as the reference does; its used flags are its
     own (all zero), so it adds zeros: a row without a used slot is left
-    at zero and not evaluated (the sums keep their order)."""
+    at zero and not evaluated (the sums keep their order). A status other
+    than 0 (a stopped loop) leaves every term zero, without a host read."""
     R = cx.shape[0]
     P = used.shape[1]
     dev = cx.device
-    rows = torch.nonzero((used != 0).any(dim=1))[:, 0]
+    live = (used != 0).any(dim=1)
+    if status is not None:
+        live = live & (status == 0)
+    rows = torch.nonzero(live)[:, 0]
     src = (tile_map.long()[rows // TILE_ROWS] * TILE_ROWS + rows % TILE_ROWS).clamp(max=R - 1)
     cxf, cyf, czf, clf, invalid = _dequant(cx[src], cy[src], cz[src], cl[src], offx, offy, offz, scale)
     q = q0[src].reshape(len(rows), P, 4)
@@ -224,9 +235,9 @@ def gn_terms(cx, cy, cz, cl, offx, offy, offz, q0, origin, row_abs, used, T,
     ry = qy - torch.gather(cyf, 1, best)
     rz = qz - torch.gather(czf, 1, best)
     r2 = rx * rx + ry * ry + rz * rz
-    mc = torch.tensor(max_corr, dtype=torch.float32, device=dev)
+    mc = device_scalar(max_corr, torch.float32, dev)
     accept = use & ~torch.gather(invalid, 1, best) & (r2 < mc * mc)
-    k = torch.tensor(kernel_th, dtype=torch.float32, device=dev)
+    k = device_scalar(kernel_th, torch.float32, dev)
     w = torch.where(accept, (k * k) / ((k + r2) * (k + r2)), 0.0)
     terms = [
         w, w * sx, w * sy, w * sz,
@@ -286,9 +297,9 @@ def radius_count(cx, cy, cz, queries, used, r2):
     fn = cuda_lib.function("radius_count.cu", "sage_radius_count", _RC_ARGTYPES)
     p = cuda_lib.ptr
     cuda_lib.call(
-        "radius_count", fn,
+        "radius_count", fn, cx.device,
         p(cx), p(cy), p(cz), p(queries), p(used), R, M, P, float(r2),
-        float(skip_margin(r2)), p(out), cuda_lib.stream_ptr(cx.device),
+        float(skip_margin(r2)), p(out),
     )
     return out
 
@@ -319,7 +330,7 @@ def radius_count_plain(cx, cy, cz, queries, used, r2):
     broadcast to (R, P, M) would hold ~680 MB per temporary at the kitti
     filter's shapes."""
     P = used.shape[1]
-    r2 = torch.tensor(r2, dtype=torch.float32, device=cx.device)
+    r2 = device_constant(float(r2), torch.float32, cx.device)
     outs = []
     for p in range(P):
         dx = cx - queries[:, 3 * p : 3 * p + 1]

@@ -33,7 +33,7 @@ LABEL_MASK = (1 << CLS_SHIFT) - 1
 MAX_K = 64  # the kernel keeps each row's zero-live slots in a 64-bit mask
 MAX_R = 64  # and stages a tile's incoming classes in shared memory
 
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7
 
 
 def apply_policy(bx, by, bz, bl, counts, seglen, ix, iy, iz, ie, basic: int):
@@ -53,24 +53,25 @@ def apply_policy(bx, by, bz, bl, counts, seglen, ix, iy, iz, ie, basic: int):
     fn = cuda_lib.function("retention_policy.cu", "sage_retention_policy", _ARGTYPES)
     p = cuda_lib.ptr
     cuda_lib.call(
-        "apply_policy", fn,
+        "apply_policy", fn, bx.device,
         p(bx), p(by), p(bz), p(bl), p(counts), p(seglen), p(ix), p(iy), p(iz), p(ie),
-        U, K, Rmax, basic, *[p(o) for o in outs], cuda_lib.stream_ptr(bx.device),
+        U, K, Rmax, basic, *[p(o) for o in outs],
     )
     return tuple(outs)
 
 
 def apply_policy_plain(bx, by, bz, bl, counts, seglen, ix, iy, iz, ie, basic: int):
     """Round r applies rank r of every row at once (sequential per row,
-    vectorized across rows), as the reference's while_loop policy does."""
+    vectorized across rows), as the reference's while_loop policy does.
+    All R_max rounds run (a round past every row's seglen changes
+    nothing): the host reads nothing."""
     U, K = bx.shape
     kidx = torch.arange(K, device=bx.device)[None, :]
     ox, oy, oz, ol = bx.clone(), by.clone(), bz.clone(), bl.clone()
     cnt = counts[:, 0].clone()
     seg = seglen[:, 0]
     zero_live = (bl == 0) & (kidx < cnt[:, None])
-    n_rounds = int(seg.max()) if U else 0
-    for r in range(n_rounds):
+    for r in range(ix.shape[1]):
         act = r < seg
         enc = ie[:, r].to(torch.int32)
         cls = enc >> CLS_SHIFT

@@ -7,20 +7,30 @@ weight, as in the reference's registration core:
   * at most 500 iterations, stop when ||x|| < 1e-4
   * empty map: the initial guess comes back unchanged
 
-The loop runs on the host with one synchronisation per Gauss-Newton
-iteration: the device computes the 18 normal-equation sums (the fused GN
-kernel on the frozen rows, or the reference-shaped search), the host
-fetches them, solves the 6x6 system in float32, composes the increment,
-and decides whether to stop and whether to re-anchor. The JAX reference
-keeps this loop on the device in a lax.while_loop; a device-side loop or
-a CUDA graph that removes the per-iteration sync is queued work.
+The frozen-rows loop (fast_params given, the main path) stays on the
+device, as the JAX package's lax.while_loop does. Its state is two small
+device tensors (ops/icp_kernel.py): the anchor, T_icp, the iteration and
+correspondence counts, the last |x|, the drift and a status word. An
+iteration is two launches that read and write only that state: the fused
+GN kernel (nn_kernels.fused_gn_iteration) and the step kernel
+(icp_kernel.icp_step: the solve, the pose update and the tests). The
+host queues them in blocks of BLOCK_ITERATIONS and reads the status once
+after each block; a stopped loop turns the rest of a block into no-op
+launches, so max_iterations holds exactly and the iteration and
+correspondence counts are those of a loop that tests every iteration.
+When the status asks for a re-anchor, the rows are rebuilt between two
+blocks, at T_icp @ anchor, on the device. IcpLoop exposes the pieces
+(its constructor, block, reanchor, result; status between them) that a
+captured step (models/pipeline.py::DeviceStep) records as CUDA graphs.
+
+The reference-shaped branch (fast_params=None) keeps a host loop with one
+synchronisation per iteration (off the main path).
 
 Across the ranks of a mesh (parallel/sharding.py) each rank runs the GN
-kernel on its contiguous slice of the frozen rows; the (18,) sums come
-back as an (n, 18) buffer and are added in rank order on the host, the
-same on every rank. Every branch of the loop (the exit, the drift, the
-re-anchor) reads those sums, the host pose and the replicated setup, so
-every rank runs the same iterations and the same collectives.
+kernel on its contiguous slice of the frozen rows; the (18,) sums are
+all-gathered as an (n, 18) buffer and added in rank order on the device,
+the same on every rank, so every rank takes the same steps and reads the
+same status. The mesh path is not captured.
 """
 
 from __future__ import annotations
@@ -33,11 +43,21 @@ import torch
 from sage_icp_tpu_torch.ops import correspondence_fast as cf
 from sage_icp_tpu_torch.ops import geometry as geo
 from sage_icp_tpu_torch.ops import hashmap as hm
+from sage_icp_tpu_torch.ops import icp_kernel as ik
 from sage_icp_tpu_torch.ops import nn_kernels
+from sage_icp_tpu_torch.ops.constants import device_scalar
 from sage_icp_tpu_torch.ops.scan import trunc_div
 
 MAX_ITERATIONS = 500
 ESTIMATION_THRESHOLD = np.float32(1e-4)
+
+# GN iterations queued per status read. Bench frames take 4.4 (city) and
+# 4.9 (kitti) iterations on average, 3-8 in steady driving, so most frames
+# end inside their first block: one host read a frame, and the rest of the
+# block is no-op launches of a few microseconds each. A block is
+# BLOCK_ITERATIONS GN launches and as many step launches, so the blocks a
+# run took are its icp_step launches (cuda_lib.launches) over this.
+BLOCK_ITERATIONS = 8
 
 
 def build_normal_equations(src, tgt, weight_mask, kernel):
@@ -65,10 +85,11 @@ def build_normal_equations(src, tgt, weight_mask, kernel):
 
 def solve_increment(JTJ, JTr) -> torch.Tensor:
     """Solve (JTJ + 1e-8 I) x = -JTr by a 6x6 Cholesky unrolled over
-    float32 scalars on the host. A non-finite solution becomes 0 (the
-    loop then stops) and |x| is clamped to 10: a legitimate step is far
-    smaller, and float32 se3_exp of a huge twist is not orthonormal.
-    Returns x (6,) f32 on the host."""
+    float32 scalars on the host (the reference-shaped branch's loop; the
+    frozen-rows loop solves on the device, icp_kernel.icp_step). A
+    non-finite solution becomes 0 (the loop then stops) and |x| is
+    clamped to 10: a legitimate step is far smaller, and float32 se3_exp
+    of a huge twist is not orthonormal. Returns x (6,) f32 on the host."""
     f32 = np.float32
     A = JTJ.detach().cpu().numpy().astype(f32) + f32(1e-8) * np.eye(6, dtype=f32)
     b = -JTr.detach().cpu().numpy().astype(f32)
@@ -95,8 +116,8 @@ def solve_increment(JTJ, JTr) -> torch.Tensor:
 
 class IcpResult(NamedTuple):
     pose: torch.Tensor  # (4, 4) on the frame's device
-    iterations: int
-    num_correspondences: int  # at the last iteration
+    iterations: torch.Tensor  # 0-dim int32 on the frame's device
+    num_correspondences: torch.Tensor  # 0-dim int32, at the last iteration
     dropped_queries: torch.Tensor  # 0-dim int32: valid sources without a row seat
 
 
@@ -104,112 +125,198 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(x * x))
 
 
-def register_frame(map_state: hm.MapState, frame, valid, initial_guess, voxel_size,
-                   max_correspondence_distance, kernel, sem_th,
-                   max_iterations: int = MAX_ITERATIONS, probe_depth: int = hm.DEFAULT_PROBE_DEPTH,
-                   fast_params: dict | None = None, tables=None, mesh=None) -> IcpResult:
-    """Frame-to-map ICP. frame (N, 4) sensor frame, valid (N,),
-    initial_guess (4, 4). With fast_params (unique_voxel_rows /
-    queries_per_voxel / overflow_rows) the frozen-rows engine runs: rows
-    are built at an anchor pose, every iteration is one fused GN kernel
-    call, and the rows are rebuilt at the current pose once the
-    accumulated increment drifts 0.45 voxel. Without, each iteration runs
-    the reference-shaped search.
+class FrozenRows(NamedTuple):
+    """A rank's share of a CorrSetup, as the GN kernel reads it."""
 
-    mesh (parallel.sharding.Mesh): the frozen rows are split across its
-    ranks, each summing its share with the GN kernel (module docstring).
-    The reference-shaped branch ignores it: every rank runs the whole
-    search."""
-    dev = frame.device
-    eye = torch.eye(4, dtype=torch.float32)
-    guess = initial_guess.detach().to("cpu", torch.float32)
-    kernel = float(kernel)
-    max_corr = float(max_correspondence_distance)
+    planes: tuple  # cx, cy, cz, cl (R', M) int16
+    q0: torch.Tensor  # (R', 4P) f32
+    origin: torch.Tensor  # (R', 3) f32
+    row_abs: torch.Tensor  # (R', 3) int32
+    used: torch.Tensor  # (R', P) int32
+    tile_map: torch.Tensor  # (ceil(R' / TILE_ROWS),) int32
+    n_dropped: torch.Tensor  # 0-dim int32, of the whole setup
 
-    if fast_params is None:
-        source = geo.transform_points(guess.to(dev), frame)
-        T_icp = eye
-        it, ncorr = 0, 0
-        last_norm = np.float32(np.inf)
-        while it < max_iterations and last_norm >= ESTIMATION_THRESHOLD:
-            tgt, accept = hm.get_correspondences(
-                map_state, source, valid, voxel_size, max_corr, sem_th, probe_depth)
-            JTJ, JTr = build_normal_equations(source, tgt, accept, kernel)
-            x = solve_increment(JTJ, JTr)
-            est = geo.se3_exp(x)
-            source = geo.transform_points(est.to(dev), source)
-            T_icp = est @ T_icp
-            ncorr = int(accept.sum())
-            last_norm = _norm(x).numpy()
-            it += 1
-        return IcpResult(pose=(T_icp @ guess).to(dev), iterations=it, num_correspondences=ncorr,
-                         dropped_queries=torch.zeros((), dtype=torch.int32, device=dev))
 
-    if tables is None:
-        tables = cf.build_probe_tables(map_state, trunc_div(guess[:3, 3].to(dev), voxel_size), probe_depth)
-    K = map_state.points_per_voxel
-    offx, offy, offz = cf.lane_offsets(K, voxel_size, dev)
-    scale = voxel_size / hm.QSCALE
-    drift_lim = np.float32(0.45 * voxel_size)
-    r2 = torch.sum(frame[:, :3] * frame[:, :3], dim=-1)
-    r_scan = torch.sqrt(torch.max(torch.where(valid, r2, 0.0))).cpu()
+def frozen_rows(setup: cf.CorrSetup, mesh=None) -> FrozenRows:
+    """This rank's rows [lo, hi) of the setup, as views (a plane's row
+    stride 2M is a multiple of the GN kernel's load width, so a view
+    keeps the plane base aligned), and their tile map."""
+    R = setup.q0.shape[0]
+    lo, hi = (0, R) if mesh is None else mesh.row_range(R)
+    used = setup.grid_used[lo:hi].to(torch.int32)
+    return FrozenRows(
+        planes=tuple(p[lo:hi] for p in (setup.cxp, setup.cyp, setup.czp, setup.clp)),
+        q0=setup.q0.reshape(R, -1)[lo:hi].contiguous(),
+        origin=setup.row_origin_abs[lo:hi].contiguous(),
+        row_abs=(setup.row_rel + setup.center[None, :])[lo:hi].contiguous(),
+        used=used,
+        tile_map=nn_kernels.default_tile_map(used),
+        n_dropped=setup.n_dropped,
+    )
 
-    def setup_at(pose):
-        return cf.corr_setup(map_state, tables, geo.transform_points(pose.to(dev), frame), valid,
-                             voxel_size, probe_depth, **fast_params)
 
-    def anchor_drift(T, anchor_pos):
-        moved = T[:3, :3] @ anchor_pos + T[:3, 3] - anchor_pos
-        cos_t = torch.clamp((torch.trace(T[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)
-        return _norm(moved) + torch.arccos(cos_t) * r_scan
+class IcpLoop:
+    """The frozen-rows ICP loop of one frame, in pieces that launch work
+    on the device and never read it back, apart from `status`:
 
-    def frozen_rows(setup):
-        """This rank's rows [lo, hi) of the setup, as views (a plane's row
-        stride 2M is a multiple of the GN kernel's load width, so a view
-        keeps the plane base aligned), and their tile map."""
-        R = setup.q0.shape[0]
-        lo, hi = (0, R) if mesh is None else mesh.row_range(R)
-        used = setup.grid_used[lo:hi].to(torch.int32)
-        return dict(
-            planes=[p[lo:hi] for p in (setup.cxp, setup.cyp, setup.czp, setup.clp)],
-            q0=setup.q0.reshape(R, -1)[lo:hi].contiguous(),
-            origin=setup.row_origin_abs[lo:hi].contiguous(),
-            row_abs=(setup.row_rel + setup.center[None, :])[lo:hi].contiguous(),
-            used=used,
-            tile_map=nn_kernels.default_tile_map(used),
-        )
+        loop = IcpLoop(...)        # state at the initial guess, the rows
+        loop.block()               # BLOCK_ITERATIONS x (GN, step)
+        while (s := loop.status()) != icp_kernel.DONE:
+            if s == icp_kernel.REANCHOR:
+                loop.reanchor()    # rows rebuilt at T_icp @ anchor
+            loop.block()
+        loop.result()
 
-    def gn_sums(T):
+    The state (loop_f, loop_i) and the rows keep their storage from the
+    constructor on: reanchor writes the new rows into it, so a CUDA graph
+    captured over block() replays against whatever rows are current."""
+
+    def __init__(self, map_state: hm.MapState, frame, valid, initial_guess, voxel_size,
+                 max_correspondence_distance, kernel, sem_th, max_iterations: int, probe_depth: int,
+                 fast_params: dict, tables=None, mesh=None):
+        dev = frame.device
+        self.map_state, self.frame, self.valid = map_state, frame, valid
+        self.voxel_size, self.sem_th, self.probe_depth = voxel_size, sem_th, probe_depth
+        self.fast_params, self.mesh = fast_params, mesh
+        self.max_iterations = int(max_iterations)
+        self.drift_lim = float(np.float32(0.45 * voxel_size))
+        guess = initial_guess.to(device=dev, dtype=torch.float32)
+        if tables is None:
+            tables = cf.build_probe_tables(map_state, trunc_div(guess[:3, 3], voxel_size), probe_depth)
+        self.tables = tables
+        K = map_state.points_per_voxel
+        self.offs = cf.lane_offsets(K, voxel_size, dev)
+        self.scale = voxel_size / hm.QSCALE
+        r2 = torch.sum(frame[:, :3] * frame[:, :3], dim=-1)
+        r_scan = torch.sqrt(torch.max(torch.where(valid, r2, 0.0)))
+        eye = torch.eye(4, dtype=torch.float32, device=dev)
+        self.loop_f = torch.cat([
+            guess.reshape(-1), eye.reshape(-1), *(device_scalar(v, torch.float32, dev).reshape(1)
+                                                  for v in (max_correspondence_distance, kernel)),
+            torch.full((1,), float("inf"), device=dev), torch.zeros((1,), device=dev), r_scan.reshape(1),
+            torch.zeros((ik.LOOP_F - ik.F_R_SCAN - 1,), device=dev),
+        ])
+        self.loop_i = torch.zeros((ik.LOOP_I,), dtype=torch.int32, device=dev)
+        if self.max_iterations <= 0:
+            self.loop_i[ik.I_STATUS].fill_(ik.DONE)
+        self.rows = frozen_rows(self._setup_at(guess), mesh)
+
+    def _setup_at(self, pose) -> cf.CorrSetup:
+        return cf.corr_setup(self.map_state, self.tables, geo.transform_points(pose, self.frame), self.valid,
+                             self.voxel_size, self.probe_depth, **self.fast_params)
+
+    def _sums(self) -> torch.Tensor:
+        f, rows = self.loop_f, self.rows
         sums = nn_kernels.fused_gn_iteration(
-            *rows["planes"], offx, offy, offz,
-            rows["q0"], rows["origin"], rows["row_abs"], rows["used"], T,
-            sem_th, scale, voxel_size, max_corr, kernel, tile_map=rows["tile_map"],
+            *rows.planes, *self.offs, rows.q0, rows.origin, rows.row_abs, rows.used,
+            f[ik.F_T].view(4, 4), self.sem_th, self.scale, self.voxel_size, f[ik.F_MAX_CORR], f[ik.F_KERNEL],
+            tile_map=rows.tile_map, status=self.loop_i[ik.I_STATUS],
         )
-        if mesh is None:
-            return sums.cpu()  # the iteration's one host sync
-        parts = mesh.all_gather(sums[None]).cpu()  # (n, 18); the host sync
+        if self.mesh is None:
+            return sums
+        parts = self.mesh.all_gather(sums[None])  # (n, 18)
         total = parts[0]
         for part in parts[1:]:  # rank order, the same on every rank
             total = total + part
         return total
 
-    anchor, T_icp = guess, eye
-    setup = setup_at(anchor)
-    rows = frozen_rows(setup)
+    def block(self) -> None:
+        """BLOCK_ITERATIONS iterations, each a GN launch and a step launch
+        (no-ops once the status is not RUNNING)."""
+        for _ in range(BLOCK_ITERATIONS):
+            ik.icp_step(self._sums(), self.loop_f, self.loop_i, self.max_iterations, self.drift_lim)
+
+    def reanchor(self) -> None:
+        """anchor <- T_icp @ anchor, T_icp <- I, the rows rebuilt there
+        (written into the current rows' storage), status RUNNING."""
+        f = self.loop_f
+        anchor = ik.compose(f[ik.F_T].view(4, 4), f[ik.F_ANCHOR].view(4, 4))
+        f[ik.F_ANCHOR].copy_(anchor.reshape(-1))
+        f[ik.F_T].copy_(torch.eye(4, dtype=torch.float32, device=f.device).reshape(-1))
+        self.loop_i[ik.I_STATUS].zero_()
+        new = frozen_rows(self._setup_at(anchor), self.mesh)
+        for dst, src in zip(self.rows.planes + self.rows[1:], new.planes + new[1:]):
+            dst.copy_(src)
+
+    def status(self) -> int:
+        """The loop's status: the one read from the device, per block. The
+        copy and the event that waits for it are on the current stream of
+        the status's device (the stream the loop's launches went to)."""
+        s = self.loop_i[ik.I_STATUS]
+        if s.device.type == "cpu":
+            return int(s)
+        host = _pinned_status()
+        host.copy_(s, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(s.device))
+        done.synchronize()
+        return int(host)
+
+    def result(self) -> IcpResult:
+        f = self.loop_f
+        return IcpResult(pose=ik.compose(f[ik.F_T].view(4, 4), f[ik.F_ANCHOR].view(4, 4)),
+                         iterations=self.loop_i[ik.I_ITERATIONS], num_correspondences=self.loop_i[ik.I_NCORR],
+                         dropped_queries=self.rows.n_dropped)
+
+    def run(self) -> IcpResult:
+        """The whole loop, eagerly."""
+        self.block()
+        while (s := self.status()) != ik.DONE:
+            if s == ik.REANCHOR:
+                self.reanchor()
+            self.block()
+        return self.result()
+
+
+_status_host: list = []
+
+
+def _pinned_status() -> torch.Tensor:
+    if not _status_host:
+        _status_host.append(torch.empty((), dtype=torch.int32, pin_memory=True))
+    return _status_host[0]
+
+
+def register_frame(map_state: hm.MapState, frame, valid, initial_guess, voxel_size,
+                   max_correspondence_distance, kernel, sem_th,
+                   max_iterations: int = MAX_ITERATIONS, probe_depth: int = hm.DEFAULT_PROBE_DEPTH,
+                   fast_params: dict | None = None, tables=None, mesh=None) -> IcpResult:
+    """Frame-to-map ICP. frame (N, 4) sensor frame, valid (N,),
+    initial_guess (4, 4); max_correspondence_distance and kernel are
+    numbers or 0-dim device tensors. With fast_params (unique_voxel_rows /
+    queries_per_voxel / overflow_rows) the frozen-rows engine runs on the
+    device (IcpLoop): rows are built at an anchor pose, every iteration is
+    one fused GN kernel call and one step kernel call, and the rows are
+    rebuilt at the current pose once the accumulated increment drifts
+    0.45 voxel. Without, each iteration runs the reference-shaped search
+    in a host loop.
+
+    mesh (parallel.sharding.Mesh): the frozen rows are split across its
+    ranks, each summing its share with the GN kernel (module docstring).
+    The reference-shaped branch ignores it: every rank runs the whole
+    search."""
+    if fast_params is not None:
+        return IcpLoop(map_state, frame, valid, initial_guess, voxel_size, max_correspondence_distance, kernel,
+                       sem_th, max_iterations, probe_depth, fast_params, tables, mesh).run()
+    dev = frame.device
+    guess = initial_guess.detach().to("cpu", torch.float32)
+    kernel = float(kernel)
+    max_corr = float(max_correspondence_distance)
+    source = geo.transform_points(guess.to(dev), frame)
+    T_icp = torch.eye(4, dtype=torch.float32)
     it, ncorr = 0, 0
     last_norm = np.float32(np.inf)
-    drift = np.float32(0.0)
     while it < max_iterations and last_norm >= ESTIMATION_THRESHOLD:
-        if drift >= drift_lim:
-            anchor, T_icp = T_icp @ anchor, eye
-            setup = setup_at(anchor)
-            rows = frozen_rows(setup)
-        JTJ, JTr, nc, _ = nn_kernels.assemble_normal_equations(gn_sums(T_icp))
+        tgt, accept = hm.get_correspondences(
+            map_state, source, valid, voxel_size, max_corr, sem_th, probe_depth)
+        JTJ, JTr = build_normal_equations(source, tgt, accept, kernel)
         x = solve_increment(JTJ, JTr)
-        T_icp = geo.se3_exp(x) @ T_icp
-        ncorr = int(nc)
+        est = geo.se3_exp(x)
+        source = geo.transform_points(est.to(dev), source)
+        T_icp = est @ T_icp
+        ncorr = int(accept.sum())
         last_norm = _norm(x).numpy()
-        drift = anchor_drift(T_icp, anchor[:3, 3]).numpy()
         it += 1
-    return IcpResult(pose=(T_icp @ anchor).to(dev), iterations=it, num_correspondences=ncorr,
-                     dropped_queries=setup.n_dropped)
+    count = lambda v: torch.full((), v, dtype=torch.int32, device=dev)
+    return IcpResult(pose=(T_icp @ guess).to(dev), iterations=count(it), num_correspondences=count(ncorr),
+                     dropped_queries=count(0))

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from sage_icp_tpu_torch.ops import geometry as geo
+from sage_icp_tpu_torch.ops.constants import device_constant
 
 # Sentinel coordinate of invalid points: far outside any map.
 INVALID_COORD = 1.0e7
@@ -32,11 +33,12 @@ SORT_SENTINEL = 1 << 62
 def trunc_div(x: torch.Tensor, s) -> torch.Tensor:
     """C-style int cast of x / s (truncation toward zero).
 
-    A Python scalar divisor becomes a tensor on x's device first: CUDA
-    computes `tensor / cpu_scalar` as a multiply by the reciprocal, which
-    can land one ulp off the true quotient and flip a voxel index."""
+    A Python scalar divisor becomes a tensor on x's device first (built
+    once, ops/constants.py): CUDA computes `tensor / cpu_scalar` as a
+    multiply by the reciprocal, which can land one ulp off the true
+    quotient and flip a voxel index."""
     if not torch.is_tensor(s):
-        s = torch.tensor(s, dtype=x.dtype, device=x.device)
+        s = device_constant(float(s), x.dtype, x.device)
     return torch.trunc(x / s).to(torch.int32)
 
 
@@ -77,12 +79,12 @@ def deskew(points, timestamps, start_pose, finish_pose):
 
 def make_label_group_lut(voxel_labels, num_labels: int = 260, device=None) -> torch.Tensor:
     """label -> class-group id; -1 = in no group (dropped by the
-    downsampler)."""
-    lut = torch.full((num_labels,), -1, dtype=torch.int32, device=device)
+    downsampler). Built once per device (ops/constants.py)."""
+    lut = [-1] * num_labels
     for g, labels in enumerate(voxel_labels):
         for lab in labels:
             lut[lab] = g
-    return lut
+    return device_constant(lut, torch.int32, device)
 
 
 def label_in_set(labels_i32: torch.Tensor, wanted) -> torch.Tensor:

@@ -36,7 +36,7 @@ MAX_PLANES = 16  # csrc/bitonic_sort.cu kMaxPlanes
 
 _I = ctypes.c_int
 _V = ctypes.c_void_p
-_ARGTYPES = [_V, _V, _V, _V, _I, _I, _I, _V]
+_ARGTYPES = [_V, _V, _V, _V, _I, _I, _I, _V, _V]
 
 
 def _check(planes, num_keys: int, unsigned) -> tuple:
@@ -77,9 +77,9 @@ def bitonic_sort_planes(planes, num_keys: int, unsigned=None):
     flags = (ctypes.c_int * num_keys)(*unsigned)
     fn = cuda_lib.function("bitonic_sort.cu", "sage_bitonic_sort", _ARGTYPES)
     cuda_lib.call(
-        "bitonic_sort_planes", fn,
+        "bitonic_sort_planes", fn, dev,
         ctypes.cast(ins, _V), ctypes.cast(ptrs, _V), cuda_lib.ptr(state), ctypes.cast(flags, _V),
-        len(planes), num_keys, n, cuda_lib.stream_ptr(dev),
+        len(planes), num_keys, n,
     )
     return outs
 

@@ -10,8 +10,8 @@ and shares out the work of the two kernels on the step:
   * the GN iteration: each rank runs the fused GN kernel on its
     contiguous slice of the frozen correspondence rows; the (18,) sums
     are all-gathered as an (n, 18) buffer and added in rank order on
-    the host, the same on every rank, so every rank solves the same 6x6
-    system and takes the same loop decisions (ops/registration.py);
+    the device, the same on every rank, so every rank solves the same
+    6x6 system and takes the same loop decisions (ops/registration.py);
   * the insert's retention policy: each rank runs the policy kernel on
     its U/n compact rows and the updated rows are all-gathered for the
     replicated write-back. Rows are independent, so the result is
@@ -107,12 +107,13 @@ def make_sharded_step(config: pl.SageConfig, mesh: Mesh, shard_insert: bool = Tr
 
 class ShardedSageICP(pl.SageICP):
     """SageICP whose step is the sharded step on `mesh` (default:
-    make_mesh()), with the configuration padded for it."""
+    make_mesh()), with the configuration padded for it. It runs eagerly:
+    its collectives are not captured."""
 
     def __init__(self, config: pl.SageConfig | str = "kitti", mesh: Mesh | None = None):
         if isinstance(config, str):
             config = pl.PRESETS[config]
         if mesh is None:
             mesh = make_mesh()
-        super().__init__(pad_config_for_mesh(config, mesh), device=mesh.device)
+        super().__init__(pad_config_for_mesh(config, mesh), device=mesh.device, graph=False)
         self.mesh = mesh

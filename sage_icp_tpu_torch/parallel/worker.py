@@ -17,7 +17,7 @@ writes to --out:
   poses_<rank>.npy   (F, 4, 4) trajectory
   map_<rank>.npz     the final map (keys, counts, points, first_pts; grid with dense_grid)
   rank_<rank>.json   the aux totals, the ICP iterations of each frame,
-                     cuda_lib.LAUNCHES, the row counts the GN and policy
+                     cuda_lib.launches(), the row counts the GN and policy
                      wrappers were called with, and ms per frame
 """
 
@@ -105,7 +105,7 @@ def main(argv=None) -> dict:
         cuda_lib.reset_launches()
         for scan in scans:
             odom.register_frame(scan[scan[:, 0] < 1.0e6])
-        launches = dict(cuda_lib.LAUNCHES)
+        launches = cuda_lib.launches()
     finally:
         for module, name, fn in originals:
             setattr(module, name, fn)

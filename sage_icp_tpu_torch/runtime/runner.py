@@ -43,7 +43,7 @@ class IcpTimer:
 
     def _solve(self, state, prep):
         icp = pl.run_icp(state.map, prep, self.odom.config)
-        self.iterations.append(icp.iterations)
+        self.iterations.append(int(icp.iterations))
         return icp
 
     def measure(self, state, scan, timestamps=None) -> float:

@@ -181,18 +181,19 @@ def test_bench_calls_match_jax(phase, scans):
 
 
 def test_register_chunk_steps_a_device_tensor_without_a_copy(scans, monkeypatch):
-    """The same storage reaches chunk_step: the bench's staged uploads are
-    not copied a second time."""
+    """The same storage reaches the device step's chunk (DeviceStep.chunk,
+    which copies each frame into its input buffer): the bench's staged
+    uploads are not copied a second time as a whole."""
     odom = tpl.SageICP(tpl.SageConfig(**TINY), device="cpu")
     buf = torch.from_numpy(odom.pad_chunk(scans[:1]))
     seen = []
-    step = tpl.chunk_step
+    step = tpl.DeviceStep.chunk
 
-    def spy(state, dev_scans, *args):
+    def spy(self, state, dev_scans):
         seen.append(dev_scans)
-        return step(state, dev_scans, *args)
+        return step(self, state, dev_scans)
 
-    monkeypatch.setattr(tpl, "chunk_step", spy)
+    monkeypatch.setattr(tpl.DeviceStep, "chunk", spy)
     odom.register_chunk(buf)
     odom.register_chunk(buf.numpy())
     assert seen[0].data_ptr() == buf.data_ptr() and seen[0].dtype == torch.int16

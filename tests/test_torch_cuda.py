@@ -13,7 +13,10 @@ imports jax, hence --noconftest):
 Without a CUDA device every test skips. Tolerances: the retention policy,
 the semantic NN, the radius count and the bitonic sort (against the
 network run stage by stage, and under its contract against the stable
-sort) bit for bit; the GN kernel in one launch and deterministic; the
+sort) bit for bit; the GN kernel in one launch and deterministic, its
+inputs read from device memory, a no-op on a stopped status; the ICP step
+kernel bit for bit; the captured step equal to the eager one bit for bit;
+the
 filter's keep mask and overflow bit for bit; the GN sums within 1e-5 of
 the sum of their terms' magnitudes (only the summation order differs);
 poses within 1e-4 of the CPU run; the golden trajectory within
@@ -283,9 +286,9 @@ def test_semantic_nn_kernel_matches_plain(card, P):
 
 def gn_args(card, K, P, R=389, dead_from=None, seed=5):
     """The GN wrapper's arguments on the card for seeded rows; T on the
-    host, as the ICP loop passes it."""
+    card, as the ICP loop's state holds it."""
     d = nn_rows(seed, R=R, P=P, K=K, dead_from=dead_from)
-    T = tgeo.se3_exp(torch.tensor([0.05, -0.02, 0.01, 0.004, -0.003, 0.006]))
+    T = tgeo.se3_exp(torch.tensor([0.05, -0.02, 0.01, 0.004, -0.003, 0.006])).to(card)
     args = [t(a).to(card) for a in d["planes"] + d["offs"] + [d["q_world"], d["origin"], d["row_abs"], d["used"]]]
     return args + [T, SEM_TH, VOXEL / 32767.0, VOXEL, MAX_CORR, KTH]
 
@@ -329,13 +332,89 @@ def test_gn_kernel_matches_plain(card, K, P, dead_from):
         assert int((tile_map != torch.arange(len(tile_map), device=card)).sum()) == 2
     cuda_lib.reset_launches()
     got = nn_kernels.fused_gn_iteration(*args, tile_map=tile_map)
-    assert cuda_lib.LAUNCHES["fused_gn_iteration"] == 1
+    assert cuda_lib.launches()["fused_gn_iteration"] == 1
     terms = nn_kernels.gn_terms(*args, tile_map)
     want = terms.sum(dim=1)
     assert torch.all((got - want).abs() <= 1e-5 * terms.abs().sum(dim=1) + 1e-6)
     assert float(got[16]) > 0 and float(got[17]) == float(want[17])
     # the reduction is deterministic, and the ticket counter is reset
     assert torch.equal(got, nn_kernels.fused_gn_iteration(*args, tile_map=tile_map))
+
+
+@pytest.mark.cuda
+def test_gn_kernel_reads_its_inputs_from_device_memory(card):
+    """T, max_corr and kernel_th as device tensors (views of a loop
+    state, as the ICP loop passes them) give the sums of the same values
+    as numbers; a stopped status makes the launch a no-op that leaves the
+    output unwritten and the ticket counter at zero (the next call is
+    right)."""
+    args = gn_args(card, 40, 2, dead_from=256)
+    tile_map = nn_kernels.default_tile_map(args[10])
+    want = nn_kernels.fused_gn_iteration(*args, tile_map=tile_map)
+    state = torch.zeros(40, device=card)
+    state[16:32] = args[11].reshape(-1)
+    state[32], state[33] = MAX_CORR, KTH
+    dev_args = args[:11] + [state[16:32].view(4, 4), SEM_TH, VOXEL / 32767.0, VOXEL, state[32], state[33]]
+    assert torch.equal(nn_kernels.fused_gn_iteration(*dev_args, tile_map=tile_map), want)
+    status = torch.ones((), dtype=torch.int32, device=card)
+    cuda_lib.reset_launches()
+    out = nn_kernels.fused_gn_iteration(*dev_args, tile_map=tile_map, status=status)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches()["fused_gn_iteration"] == 1
+    assert int(nn_kernels._gn_scratch_on(card)[0]) == 0
+    del out  # unwritten: its contents are whatever the allocator held
+    status.zero_()
+    assert torch.equal(nn_kernels.fused_gn_iteration(*dev_args, tile_map=tile_map, status=status), want)
+
+
+@pytest.mark.cuda
+def test_icp_step_kernel_matches_plain(card):
+    """The step kernel against its plain version bit for bit, from the
+    same loop state, over seeded GN sums: a solve, a non-finite solve, a
+    clamped one, a stop at max_iterations, a re-anchor request and a
+    launch on a stopped loop."""
+    from sage_icp_tpu_torch.ops import icp_kernel as ik
+
+    args = gn_args(card, 40, 2, dead_from=256)
+    sums = nn_kernels.fused_gn_iteration(*args)
+    cases = [sums, sums * torch.tensor([float("nan")] * 16 + [1.0, 1.0], device=card),
+             sums * torch.tensor([1.0] * 10 + [1e6] * 6 + [1.0, 1.0], device=card)]
+    for k, s in enumerate(cases):
+        for max_it, drift_lim, status in ((500, 0.36, 0), (1, 0.36, 0), (500, 1e-6, 0), (500, 0.36, 1)):
+            f = torch.zeros(ik.LOOP_F, device=card)
+            f[ik.F_ANCHOR] = tgeo.se3_exp(torch.tensor([3.0, -1.0, 0.2, 0.01, 0.02, 0.3])).reshape(-1).to(card)
+            f[ik.F_T] = args[11].reshape(-1)
+            f[ik.F_R_SCAN] = 40.0
+            i = torch.tensor([k, 0, status, 0], dtype=torch.int32, device=card)
+            fp, ip = f.clone(), i.clone()
+            ik.icp_step(s, f, i, max_it, drift_lim)
+            ik.icp_step_plain(s, fp, ip, max_it, drift_lim)
+            assert torch.equal(f, fp) and torch.equal(i, ip), (k, max_it, drift_lim, status)
+
+
+@pytest.mark.cuda
+def test_graph_step_equals_eager_on_card(card):
+    """SageICP with the captured step and with the eager one on the
+    golden fixture's scans: poses, per-frame iterations, aux totals and
+    final maps bit for bit."""
+    pts, labs = synthetic.build_world(seed=1, length=80.0)
+    gt = synthetic.make_trajectory(8, step=1.0)
+    rng = np.random.default_rng(3)
+    scans = [synthetic.render_scan(pts, labs, gt[i], rng, n_target=14000) for i in range(8)]
+    runs = []
+    for graph in (True, False):
+        odom = tpl.SageICP(tpl.SageConfig(**GOLDEN_CONFIG), graph=graph)
+        for s in scans[:3]:
+            odom.register_frame(s)
+        odom.register_chunk(scans[3:])
+        runs.append(odom)
+    on, off = runs
+    np.testing.assert_array_equal(on.trajectory(), off.trajectory())
+    assert on.icp_iters == off.icp_iters
+    for a, b in zip(on.aux_totals(), off.aux_totals()):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(on.state.map, off.state.map):
+        assert (a is None and b is None) or torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -362,7 +441,7 @@ def one_launch(wrapper: str, kernel: str, fn):
     `kernel`, when it runs again. Returns the first call's result."""
     cuda_lib.reset_launches()
     out = fn()
-    assert cuda_lib.LAUNCHES[wrapper] == 1
+    assert cuda_lib.launches()[wrapper] == 1
     names = device_kernels(fn)
     assert len(names) == 1 and kernel in names[0], names
     return out
@@ -422,7 +501,7 @@ def test_policy_kernel_refuses_beyond_its_limits(card, K, Rm):
     cuda_lib.reset_launches()
     with pytest.raises(ValueError, match="the kernel takes"):
         policy_kernel.apply_policy(*args, basic=4)
-    assert cuda_lib.LAUNCHES["apply_policy"] == 0
+    assert cuda_lib.launches()["apply_policy"] == 0
 
 
 @pytest.mark.cuda
@@ -438,7 +517,7 @@ def test_register_frame_on_card_matches_cpu(card):
         out.append(treg.register_frame(m, t(frame).to(dev), torch.ones(n, dtype=torch.bool, device=dev),
                                        torch.eye(4), 1.0, **kw))
     np.testing.assert_allclose(out[1].pose.cpu().numpy(), out[0].pose.numpy(), atol=1e-4)
-    assert abs(out[1].iterations - out[0].iterations) <= 1
+    assert abs(int(out[1].iterations) - int(out[0].iterations)) <= 1
 
 
 @pytest.mark.cuda
@@ -455,8 +534,12 @@ def test_golden_trajectory_on_card(card):
     assert np.linalg.norm(golden[:, :3, 3] - est[:, :3, 3], axis=-1).max() < 0.02
     assert np.linalg.norm(golden[:, :3, :3] - est[:, :3, :3], axis=(-2, -1)).max() < 0.02
     assert int(odom.aux_totals().overflow_total()) == 0
-    assert cuda_lib.LAUNCHES["fused_gn_iteration"] == sum(odom.icp_iters)
-    assert cuda_lib.LAUNCHES["apply_policy"] == 12
+    # counted on the card by the kernels, the captured step's replays too
+    launches = cuda_lib.launches()
+    slots = launches["icp_step"]
+    assert slots % treg.BLOCK_ITERATIONS == 0 and slots >= 12 * treg.BLOCK_ITERATIONS
+    assert launches["fused_gn_iteration"] == slots and sum(odom.icp_iters) <= slots
+    assert launches["apply_policy"] == 12
 
 
 def drive_on_card(config, world, gt, seed=3, corrupt=None):
@@ -561,7 +644,7 @@ def test_radius_count_kernel_matches_plain(card, P):
     args = [t(a).to(card) for a in radius_rows(6, R=4096, P=P)] + [0.25]
     cuda_lib.reset_launches()
     got = nn_kernels.radius_count(*args)
-    assert cuda_lib.LAUNCHES["radius_count"] == 1
+    assert cuda_lib.launches()["radius_count"] == 1
     want = nn_kernels.radius_count_plain(*args)
     assert torch.equal(got, want)
     assert float(want.max()) > 0
@@ -689,8 +772,8 @@ def test_kitti_default_preset_on_card(card):
     for i in range(5):
         odom.register_frame(synthetic.render_scan(*world, gt[i], rng, n_target=120_000))
     assert int(odom.aux_totals().overflow_total()) == 0
-    assert cuda_lib.LAUNCHES["radius_count"] == 5
-    assert cuda_lib.LAUNCHES["apply_policy"] == 5
+    launches = cuda_lib.launches()
+    assert launches["radius_count"] == 5 and launches["apply_policy"] == 5
     g0 = np.linalg.inv(gt[0])
     err = [np.linalg.norm(e[:3, 3] - (g0 @ g)[:3, 3]) for e, g in zip(odom.trajectory(), gt)]
     assert max(err) < 0.05
@@ -814,8 +897,31 @@ def test_nccl_world_of_one_equals_sage_icp_on_card(card, tmp_path):
     np.testing.assert_array_equal(sharded.trajectory(), single.trajectory())
     for a, b in zip(sharded.state.map, single.state.map):
         assert (a is None and b is None) or torch.equal(a, b)
-    iters = sum(single.icp_iters) + sum(sharded.icp_iters)
-    assert cuda_lib.LAUNCHES["fused_gn_iteration"] == iters and cuda_lib.LAUNCHES["apply_policy"] == 6
+    launches = cuda_lib.launches()
+    slots = launches["icp_step"]
+    assert slots % treg.BLOCK_ITERATIONS == 0 and sum(single.icp_iters) + sum(sharded.icp_iters) <= slots
+    assert launches["fused_gn_iteration"] == slots and launches["apply_policy"] == 6
+
+
+@pytest.mark.cuda
+def test_sage_icp_on_a_card_that_is_not_current(card):
+    """SageICP on cuda:1 while cuda:0 is current: the step makes its own
+    device current (launches, captures and the status read on cuda:1's
+    stream), so it equals the same drive on cuda:0 bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    runs = []
+    for dev in ("cuda:0", "cuda:1"):
+        torch.cuda.set_device(0)
+        odom = tpl.SageICP(tpl.SageConfig(**TINY_CONFIG), device=dev)
+        for s in tiny_scans():
+            odom.register_frame(s)
+        runs.append(odom)
+    assert torch.cuda.current_device() == 0
+    np.testing.assert_array_equal(runs[1].trajectory(), runs[0].trajectory())
+    assert runs[1].icp_iters == runs[0].icp_iters
+    for a, b in zip(runs[1].state.map, runs[0].state.map):
+        assert (a is None and b is None) or torch.equal(a.cpu(), b.cpu())
 
 
 @pytest.mark.cuda
@@ -824,8 +930,9 @@ def test_two_ranks_sharing_the_card(card, tmp_path):
     ranks on one device), on the tiny config: equal to each other bit for
     bit, maps slot for slot, within 5e-4 of SageICP on the card
     (test_sharded_step_matches_single_device's bound), healthy; each rank
-    ran GN on 320 of the 640 rows every ICP iteration and the policy on
-    1,024 of the 2,048 rows every frame, on the card."""
+    ran GN on 320 of the 640 rows in every slot of every block of ICP
+    iterations and the policy on 1,024 of the 2,048 rows every frame, on
+    the card."""
     import json
     import subprocess
     import sys
@@ -862,7 +969,8 @@ def test_two_ranks_sharing_the_card(card, tmp_path):
     n = len(scans)
     for r in range(2):
         rep = json.loads((tmp_path / f"rank_{r}.json").read_text())
-        iters = sum(rep["icp_iterations"])
-        assert rep["aux_totals"]["nonfinite_pose"] == 0
-        assert rep["kernel_rows"] == {"fused_gn_iteration": {"320": iters}, "apply_policy": {"1024": n}}
-        assert rep["launches"]["fused_gn_iteration"] == iters and rep["launches"]["apply_policy"] == n
+        slots = rep["launches"]["icp_step"]
+        assert slots % treg.BLOCK_ITERATIONS == 0 and slots >= n * treg.BLOCK_ITERATIONS
+        assert rep["aux_totals"]["nonfinite_pose"] == 0 and sum(rep["icp_iterations"]) <= slots
+        assert rep["kernel_rows"] == {"fused_gn_iteration": {"320": slots}, "apply_policy": {"1024": n}}
+        assert rep["launches"]["fused_gn_iteration"] == slots and rep["launches"]["apply_policy"] == n

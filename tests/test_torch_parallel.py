@@ -30,6 +30,7 @@ from sage_icp_tpu.parallel import sharding as jsh
 from sage_icp_tpu.utils import synthetic
 from sage_icp_tpu_torch.models import pipeline as tpl
 from sage_icp_tpu_torch.ops import hashmap as thm
+from sage_icp_tpu_torch.ops.registration import BLOCK_ITERATIONS
 from sage_icp_tpu_torch.parallel import distributed as tdist
 from sage_icp_tpu_torch.parallel import sharding as tsh
 from sage_icp_tpu_torch.parallel.worker import save_scans
@@ -227,8 +228,10 @@ def test_two_ranks_agree_and_match_single_device(tmp_path, tiny_scans, port_sing
     """Two ranks over gloo on tests/test_parallel.py's tiny config and
     world: equal to each other bit for bit, maps slot for slot; within
     5e-4 of the JAX package's single-device SageICP and of the port's.
-    Each rank ran GN on its 320 of the 640 rows every ICP iteration and
-    the policy on its 1,024 of the 2,048 insert rows every frame."""
+    Each rank ran GN on its 320 of the 640 rows in every slot of every
+    block of ICP iterations (at least one block a frame, enough slots for
+    every iteration) and the policy on its 1,024 of the 2,048 insert rows
+    every frame."""
     r0, r1 = run_workers(tmp_path, tiny_scans, port_tiny(), 2)
     np.testing.assert_array_equal(r0["poses"], r1["poses"])
     for name in r0["map"]:
@@ -241,8 +244,10 @@ def test_two_ranks_agree_and_match_single_device(tmp_path, tiny_scans, port_sing
     np.testing.assert_allclose(r0["poses"], jax_odom.trajectory(), atol=5e-4)
     for r in (r0, r1):
         rep = r["report"]
-        iters = sum(rep["icp_iterations"])
-        assert rep["kernel_rows"] == {"fused_gn_iteration": {"320": iters}, "apply_policy": {"1024": 3}}
+        # the GN wrapper's calls on this rank's 320 rows: BLOCK_ITERATIONS a block
+        iters, slots = sum(rep["icp_iterations"]), rep["kernel_rows"]["fused_gn_iteration"]["320"]
+        assert slots % BLOCK_ITERATIONS == 0 and slots >= 3 * BLOCK_ITERATIONS and iters <= slots
+        assert rep["kernel_rows"] == {"fused_gn_iteration": {"320": slots}, "apply_policy": {"1024": 3}}
         assert rep["icp_iterations"] == r0["report"]["icp_iterations"]
 
 
