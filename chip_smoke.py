@@ -75,18 +75,27 @@ Phases, each fatal on failure:
      (trajectory within 1e-5 m, the map slot for slot);
  10. multi-rank (parallel/): (a) NCCL at world size 1 in process,
      init_distributed through a file:// rendezvous under build/, then
-     ShardedSageICP() (the kitti preset) on phase 6's 40 scans with phase
-     6's calls: its trajectory equal to phase 6's bit for bit, no drop, GN
-     launched in every slot of every ICP block, the policy and the radius count once
-     a frame; (b) two parallel.worker processes sharing the card over gloo
-     (NCCL refuses two ranks on one device), each at the full kitti preset
-     on the same 40 scans: the two trajectories equal bit for bit and the
+     ShardedSageICP() (the kitti preset; captured, its collectives in the
+     graphs) and ShardedSageICP(graph=False), alternated (captured, eager,
+     eager, captured), on phase 6's 40 scans with phase 6's calls: each
+     trajectory equal to phase 6's bit for bit, the two equal in
+     iterations, totals and final maps, no drop, GN launched in every
+     slot of every ICP block, the policy and the radius count once a
+     frame; the host's launch calls and waits a frame of each (fewer than
+     10 launch calls captured) and the ms/frame of each run; (b) two
+     parallel.worker processes sharing the card over gloo (NCCL refuses
+     two ranks on one device; eager), each at the full kitti preset on
+     the same 40 scans: the two trajectories equal bit for bit and the
      final maps slot for slot, each within 5e-3 m of phase 6's trajectory
      (test_sharded_maneuver_equivalence's bound), ATE < 0.05 m, no drop,
      and per rank GN in every slot of every ICP block on 9,216 of the 18,432 rows,
      the policy once a frame on 16,512 of the 33,024 rows, the radius count
      once a frame (replicated). Each rank's ms/frame is printed: two ranks
-     share one card, so it is not a scaling figure. 10a also prints the
+     share one card, so it is not a scaling figure. (c) With two cards or
+     more, the same with two NCCL ranks on cuda:0 and cuda:1, each step
+     captured; with one card it prints that it did not run and why. Every
+     rank process is killed after TWO_RANKS_TIMEOUT_S: ranks out of step
+     wait on each other rather than fail. 10a also prints the
      host time of one GN-sum exchange and of one insert gather over NCCL.
  11. the dense voxel-grid index: PRESETS["kitti"] and PRESETS["city"] with
      dense_grid on and off, three runs of each, alternated, on phase 6's
@@ -127,7 +136,20 @@ Phases, each fatal on failure:
      copy and an event, not a synchronising operation); per frame, graph
      on and off, the host's launch and wait calls and the device busy
      share (torch.profiler), the peak device memory of a fresh SageICP,
-     and ms/frame in six alternated runs each, at kitti and city.
+     and ms/frame in six alternated runs each, at kitti and city;
+ 15. the reference-shaped ICP loop (registration.RefLoop): PRESETS["kitti"]
+     with use_fast_correspondences=False on phase 6's 40 scans, as phase
+     14.1 (graph = eager bit for bit: poses, iterations, aux, totals,
+     final maps; the reference step kernel in whole blocks, GN and the
+     frozen-rows step not at all), ATE < 0.05 m and no drop; the device
+     ms of one iteration (torch.profiler's kernel time of a block); the
+     reference step kernel bit for bit against its plain version on 64
+     steps recorded from an eager drive, and its time a step, a no-op
+     step and the plain version's; the eager step under
+     set_sync_debug_mode("error"); ms/frame of the captured drive at 1,
+     2, 4 and 8 iterations a block (alternated), the host's launch calls,
+     waits and the idle share at each, and the eager step's at the
+     package's block length.
 The line before the device line is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits non-zero and prints no result.
@@ -165,7 +187,7 @@ PORT_KERNELS = ("semantic_nn_kernel", "gn_iteration_kernel", "retention_policy_k
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DRIVE_ROWS = os.path.join(ROOT, "build", "drive_rows.pt")
 MULTI_RANK_DIR = os.path.join(ROOT, "build", "multi_rank")
-TWO_RANKS_TIMEOUT_S = 600
+TWO_RANKS_TIMEOUT_S = 240
 CLI_OUT = os.path.join(ROOT, "build", "cli_smoke")
 CLI_FRAMES = 40
 WARMUP, FRAMES = 10, 30  # each path: warm-up and timed frames
@@ -618,22 +640,27 @@ def counts() -> dict:
     return cuda_lib.launches()
 
 
-def expect_launches(name, launches, iterations, frames, prepares) -> None:
+def expect_launches(name, launches, iterations, frames, prepares, reference: bool = False) -> None:
     """The ICP step kernel in whole blocks of BLOCK_ITERATIONS (at least
     one block a frame, enough slots for the `iterations` the frames
     took), GN once per ICP step, the policy once a frame (the insert),
     the radius count once per prepare (the filter: once a frame, and once
     more in each of IcpTimer's replays), the NN and sort kernels not at
-    all. Every count is the kernels' own, read from the card."""
-    from sage_icp_tpu_torch.ops.registration import BLOCK_ITERATIONS
+    all. With `reference` (fast correspondences off) the reference step
+    kernel in whole blocks of REF_BLOCK_ITERATIONS takes the ICP step's
+    place, and neither GN nor the ICP step runs. Every count is the
+    kernels' own, read from the card."""
+    from sage_icp_tpu_torch.ops import registration as reg
 
-    slots = launches["icp_step"]
-    blocks, rest = divmod(slots, BLOCK_ITERATIONS)
+    step, block = ("icp_ref_step", reg.REF_BLOCK_ITERATIONS) if reference else ("icp_step", reg.BLOCK_ITERATIONS)
+    slots = launches[step]
+    blocks, rest = divmod(slots, block)
     if rest or blocks < frames or iterations > slots:
-        fail(f"{name}: {slots} ICP steps ({blocks} blocks and {rest}) for {frames} frames and {iterations} "
-             "iterations")
-    expect = dict(fused_gn_iteration=slots, apply_policy=frames, radius_count=prepares,
-                  fused_semantic_nn=0, bitonic_sort_planes=0)
+        fail(f"{name}: {slots} {step} launches ({blocks} blocks of {block} and {rest}) for {frames} frames and "
+             f"{iterations} iterations")
+    frozen = 0 if reference else slots
+    expect = dict(fused_gn_iteration=frozen, icp_step=frozen, icp_ref_step=slots if reference else 0,
+                  apply_policy=frames, radius_count=prepares, fused_semantic_nn=0, bitonic_sort_planes=0)
     for kernel, count in expect.items():
         if launches[kernel] != count:
             fail(f"{name}: {kernel} launched {launches[kernel]} times, expected {count}")
@@ -1121,9 +1148,11 @@ def collective_ms(mesh, dev, policy_rows: int, kmax: int) -> dict:
 
 def nccl_world_of_one(scans, traj, dev, profile_scans=None) -> None:
     """Phase 10a: NCCL at world size 1, in process; ShardedSageICP() on
-    the kitti drive's scans with phase 6's calls, equal to phase 6 bit for
-    bit. With profile_scans (--profile), phase 8's breakdown of this path
-    on them."""
+    the kitti drive's scans with phase 6's calls, captured (its default
+    over NCCL) and eager (graph=False), alternated: each equal to phase 6
+    bit for bit, the two equal in iterations, totals and final maps; the
+    host's launch calls and waits a frame of each. With profile_scans
+    (--profile), phase 8's breakdown of the captured path on them."""
     import torch.distributed as dist
 
     from sage_icp_tpu_torch.models.pipeline import PRESETS
@@ -1134,61 +1163,100 @@ def nccl_world_of_one(scans, traj, dev, profile_scans=None) -> None:
     if os.path.exists(rendezvous):
         os.remove(rendezvous)
     mesh = init_distributed(f"file://{rendezvous}", 1, 0, backend="nccl", device=dev)
+    runs = {True: [], False: []}
+    made = []  # released before the group is destroyed: NCCL waits for the graphs holding its kernels
     try:
-        if dist.get_backend() != "nccl":
+        if dist.get_backend() != "nccl" or mesh.backend != "nccl":
             fail(f"phase 10a: the process group's backend is {dist.get_backend()}, not nccl")
-        odom = ShardedSageICP()  # the kitti preset on make_mesh(): the group just joined
-        if odom.mesh.group is None or odom.mesh.size != 1 or odom.config != PRESETS["kitti"]:
-            fail(f"ShardedSageICP() at world size 1: mesh {odom.mesh}, config padded away from the kitti preset")
-        elapsed, launches = register(odom, scans, WARMUP, len(scans))
-        cfg = odom.config
-        coll = collective_ms(odom.mesh, odom.device, min(cfg.insert_unique_capacity, cfg.frame_capacity),
-                             cfg.points_per_voxel)
-        got, iters, totals = odom.trajectory(), list(odom.icp_iters), odom.aux_totals()
+        for graph in (True, False, False, True):
+            # ShardedSageICP(): the kitti preset on make_mesh(), the group just joined
+            odom = ShardedSageICP() if graph else ShardedSageICP(graph=False)
+            made.append(odom)
+            if odom.mesh.group is None or odom.mesh.size != 1 or odom.config != PRESETS["kitti"]:
+                fail(f"ShardedSageICP() at world size 1: mesh {odom.mesh}, config padded away from the kitti preset")
+            if odom.graph != graph:
+                fail(f"ShardedSageICP(graph={graph if not graph else None}) over NCCL runs graph={odom.graph}")
+            elapsed, launches = register(odom, scans, WARMUP, len(scans))
+            runs[graph].append(dict(odom=odom, ms=1e3 * elapsed / (len(scans) - WARMUP), launches=launches))
+        cfg = PRESETS["kitti"]
+        coll = collective_ms(mesh, dev, min(cfg.insert_unique_capacity, cfg.frame_capacity), cfg.points_per_voxel)
+        host = {}
+        for graph in (True, False):
+            odom = ShardedSageICP(graph=graph)
+            made.append(odom)
+            for scan in scans[:WARMUP]:
+                odom.register_frame(scan)
+            host[graph] = host_profile(f"NCCL world of one, graph={graph}", odom, scans[WARMUP:WARMUP + 5])
         if profile_scans:
-            profile("kitti NCCL world of one", odom, profile_scans)
+            profile("kitti NCCL world of one (captured)", runs[True][0]["odom"], profile_scans)
     finally:
+        for odom in made:
+            odom.release()
         dist.destroy_process_group()
-    if not np.array_equal(got, traj):
-        fail(f"NCCL world of one differs from phase 6's trajectory: max |diff| {np.abs(got - traj).max()}")
-    if int(totals.overflow_total()) != 0:
-        fail(f"NCCL world of one: silent-drop counters over all frames: {totals}")
-    expect_launches("NCCL world of one", launches, sum(iters), len(scans), len(scans))
+    for graph, rs in runs.items():
+        for r in rs:
+            odom = r["odom"]
+            got = odom.trajectory()
+            if not np.array_equal(got, traj):
+                fail(f"NCCL world of one, graph={graph}: differs from phase 6's trajectory: max |diff| "
+                     f"{np.abs(got - traj).max()}")
+            if int(odom.aux_totals().overflow_total()) != 0:
+                fail(f"NCCL world of one, graph={graph}: silent-drop counters over all frames: {odom.aux_totals()}")
+            expect_launches(f"NCCL world of one, graph={graph}", r["launches"], sum(odom.icp_iters), len(scans),
+                            len(scans))
+    on, off = runs[True][0]["odom"], runs[False][0]["odom"]
+    if on.icp_iters != off.icp_iters or not aux_equal(on.aux_totals(), off.aux_totals()):
+        fail("NCCL world of one: the captured and eager runs' iterations or totals differ")
+    if map_differs(on.state.map, off.state.map):
+        fail("NCCL world of one: the captured and eager runs' final maps differ")
+    if not host[True]["launches"] < 10:
+        fail(f"NCCL world of one, captured: {host[True]['launches']} host launch calls a frame (bound 10)")
     frames = len(scans) - WARMUP
-    print(f"NCCL world of one (ShardedSageICP(), kitti preset): trajectory equal to phase 6's bit for bit; "
-          f"{1e3 * elapsed / frames:.3f} ms/frame over {frames} timed frames; ICP iterations "
-          f"{sum(iters)}; launches {launches}", flush=True)
+    ms = {g: [round(r["ms"], 3) for r in rs] for g, rs in runs.items()}
+    print(f"NCCL world of one (ShardedSageICP(), kitti preset): captured and eager each equal to phase 6's "
+          f"trajectory bit for bit, to each other in iterations ({sum(on.icp_iters)}), totals and final maps; "
+          f"ms/frame over {frames} timed frames, captured {ms[True]}, eager {ms[False]} (alternated: captured, "
+          f"eager, eager, captured); host launch calls a frame captured {host[True]['launches']:.1f}, eager "
+          f"{host[False]['launches']:.1f}; launches captured {runs[True][0]['launches']}", flush=True)
     print(f"NCCL world of one, host ms a call: GN sums gathered and added on the card {coll['gn_exchange']:.4f} "
           f"(a fetch to the host alone {coll['gn_fetch']:.4f}); the insert's gather {coll['insert_gather']:.4f}",
           flush=True)
 
 
-def two_ranks_one_card(scans, traj, gt, dev) -> None:
-    """Phase 10b: two parallel.worker processes on the card over gloo, at
-    the full kitti preset, on the kitti drive's scans."""
+def two_ranks(label: str, backend: str, devices, scans, traj, gt) -> None:
+    """Phases 10b and 10c: two parallel.worker processes over `backend`,
+    rank r on devices[r], at the full kitti preset, on the kitti drive's
+    scans; each killed after TWO_RANKS_TIMEOUT_S (ranks out of step wait
+    on each other rather than fail). Their step is ShardedSageICP's
+    default: eager over gloo, captured over NCCL."""
     from sage_icp_tpu_torch.models.pipeline import PRESETS
     from sage_icp_tpu_torch.parallel.worker import save_scans
 
-    out = os.path.join(MULTI_RANK_DIR, "two_ranks")
+    out = os.path.join(MULTI_RANK_DIR, f"two_ranks_{backend}")
     os.makedirs(out, exist_ok=True)
-    rendezvous = os.path.join(MULTI_RANK_DIR, "rendezvous_gloo")
+    rendezvous = os.path.join(MULTI_RANK_DIR, f"rendezvous_{backend}")
     if os.path.exists(rendezvous):
         os.remove(rendezvous)
     save_scans(os.path.join(out, "scans.npy"), scans)
     cmds = [[sys.executable, "-m", "sage_icp_tpu_torch.parallel.worker", "--rank", str(r), "--world", "2",
-             "--init", f"file://{rendezvous}", "--backend", "gloo", "--device", f"cuda:{dev.index or 0}",
-             "--preset", "kitti", "--scans", os.path.join(out, "scans.npy"), "--out", out] for r in range(2)]
+             "--init", f"file://{rendezvous}", "--backend", backend, "--device", devices[r],
+             "--preset", "kitti", "--scans", os.path.join(out, "scans.npy"), "--out", out,
+             "--timeout", str(TWO_RANKS_TIMEOUT_S)] for r in range(2)]
     procs = [subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
-    try:
-        logs = [p.communicate(timeout=TWO_RANKS_TIMEOUT_S)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
+    deadline, logs, late = time.monotonic() + TWO_RANKS_TIMEOUT_S, [], False
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+        except subprocess.TimeoutExpired:
+            late = True
+            p.kill()
+            logs.append(p.communicate()[0])
+    if late:
+        fail(f"{label}: the ranks did not finish within {TWO_RANKS_TIMEOUT_S} s and were killed:\n"
+             + "\n".join(f"rank {r}: {log[-2000:]}" for r, log in enumerate(logs)))
     for r, (p, log) in enumerate(zip(procs, logs)):
         if p.returncode != 0:
-            fail(f"rank {r} of the two-rank run exited {p.returncode}:\n{log[-4000:]}")
+            fail(f"{label}: rank {r} exited {p.returncode}:\n{log[-4000:]}")
     ranks = []
     for r in range(2):
         with open(os.path.join(out, f"rank_{r}.json")) as f:
@@ -1196,42 +1264,56 @@ def two_ranks_one_card(scans, traj, gt, dev) -> None:
                               map=dict(np.load(os.path.join(out, f"map_{r}.npz")))))
     r0, r1 = ranks
     if not np.array_equal(r0["poses"], r1["poses"]):
-        fail(f"the two ranks' trajectories differ: max |diff| {np.abs(r0['poses'] - r1['poses']).max()}")
+        fail(f"{label}: the two ranks' trajectories differ: max |diff| {np.abs(r0['poses'] - r1['poses']).max()}")
     if not all(np.array_equal(r0["map"][k], r1["map"][k]) for k in r0["map"]):
-        fail("the two ranks' final maps differ")
+        fail(f"{label}: the two ranks' final maps differ")
     gap = float(np.linalg.norm(r0["poses"][:, :3, 3] - traj[:, :3, 3], axis=-1).max())
     ate = ate_of(r0["poses"], gt)
     if not gap < 5e-3:
-        fail(f"two ranks: {gap} m from phase 6's single-device trajectory (bound 5e-3 m)")
+        fail(f"{label}: {gap} m from phase 6's single-device trajectory (bound 5e-3 m)")
     if not ate < 0.05:
-        fail(f"two ranks: ATE {ate} m")
+        fail(f"{label}: ATE {ate} m")
     cfg = PRESETS["kitti"]
     gn_rows = (cfg.corr_unique_voxel_rows + cfg.corr_overflow_rows) // 2
     policy_rows = min(cfg.insert_unique_capacity, cfg.frame_capacity) // 2
+    captured = backend == "nccl"
     n = len(scans)
     for r, rank in enumerate(ranks):
         rep = rank["report"]
+        if rep["graph"] != captured or rep["backend"] != backend:
+            fail(f"{label}: rank {r} ran graph={rep['graph']} over {rep['backend']}")
         if rep["overflow_total"] != 0:
-            fail(f"rank {r}: silent-drop counters over all frames: {rep['aux_totals']}")
+            fail(f"{label}: rank {r}: silent-drop counters over all frames: {rep['aux_totals']}")
         iters = sum(rep["icp_iterations"])
-        expect_launches(f"rank {r} of two", rep["launches"], iters, n, n)
+        expect_launches(f"{label}, rank {r}", rep["launches"], iters, n, n)
         slots = rep["launches"]["icp_step"]
-        want_rows = {"fused_gn_iteration": {str(gn_rows): slots}, "apply_policy": {str(policy_rows): n}}
-        if rep["kernel_rows"] != want_rows:
-            fail(f"rank {r}: kernel rows {rep['kernel_rows']}, expected {want_rows}")
-        print(f"two ranks sharing one card (gloo), rank {r}: {rep['ms_per_frame']:.3f} ms/frame after the first "
-              f"frame -- two ranks sharing one card: not a scaling figure; ICP iterations {iters}, launches "
-              f"{rep['launches']}, kernel rows {rep['kernel_rows']}", flush=True)
-    print(f"two ranks on one card: trajectories equal bit for bit, final maps equal slot for slot; "
-          f"{gap:.3e} m from phase 6's trajectory at most; ATE {ate:.5f} m; GN on {gn_rows} rows and the policy "
-          f"on {policy_rows} rows per rank", flush=True)
+        # the wrappers' Python calls: every launch of the eager step; the
+        # first frame's and the captures' of a captured one
+        rows = {k: set(v) for k, v in rep["kernel_rows"].items()} if captured else rep["kernel_rows"]
+        want_rows = ({"fused_gn_iteration": {str(gn_rows)}, "apply_policy": {str(policy_rows)}} if captured else
+                     {"fused_gn_iteration": {str(gn_rows): slots}, "apply_policy": {str(policy_rows): n}})
+        if rows != want_rows:
+            fail(f"{label}: rank {r}: kernel rows {rep['kernel_rows']}, expected {want_rows}")
+        print(f"{label}, rank {r} on {rep['device']} (graph={rep['graph']}): {rep['ms_per_frame']:.3f} ms/frame "
+              f"after the first frame; ICP iterations {iters}, launches {rep['launches']}, kernel rows "
+              f"{rep['kernel_rows']}", flush=True)
+    print(f"{label}: trajectories equal bit for bit, final maps equal slot for slot; {gap:.3e} m from phase 6's "
+          f"trajectory at most; ATE {ate:.5f} m; GN on {gn_rows} rows and the policy on {policy_rows} rows per "
+          "rank", flush=True)
 
 
 def multi_rank_phase(scans, traj, gt, dev, profile_scans=None) -> None:
     """Phase 10: the kitti drive's scans through the parallel layer."""
     os.makedirs(MULTI_RANK_DIR, exist_ok=True)
     nccl_world_of_one(scans, traj, dev, profile_scans)
-    two_ranks_one_card(scans, traj, gt, dev)
+    # two ranks sharing one card: not a scaling figure
+    two_ranks("two ranks sharing one card (gloo)", "gloo", (f"cuda:{dev.index or 0}",) * 2, scans, traj, gt)
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"phase 10c did not run: two NCCL ranks need two cards (NCCL refuses two ranks on one device), and "
+              f"this machine has {cards}", flush=True)
+        return
+    two_ranks("two NCCL ranks on two cards (captured)", "nccl", ("cuda:0", "cuda:1"), scans, traj, gt)
 
 
 def map_differs(a, b) -> list:
@@ -1481,7 +1563,8 @@ def graph_pair(label: str, config, scans, tss=None, ref_traj=None, per_frame: in
     trajectories, per-frame iterations, every aux read, the running
     totals, the final maps slot for slot (the dense grid too); the
     launches as on any path; the graph run equal to the path's own
-    trajectory (ref_traj). Returns {graph: (odom, ms/frame)}."""
+    trajectory (ref_traj). Returns {graph: (odom, ms/frame, launches)}."""
+    from sage_icp_tpu_torch.models import pipeline as pl
     from sage_icp_tpu_torch.models.pipeline import SageICP
 
     tss = tss or [None] * len(scans)
@@ -1505,7 +1588,7 @@ def graph_pair(label: str, config, scans, tss=None, ref_traj=None, per_frame: in
         if int(odom.aux_totals().overflow_total()) != 0:
             fail(f"{name}: silent-drop counters over all frames: {odom.aux_totals()}")
         expect_launches(name, launches, sum(odom.icp_iters), len(scans),
-                        len(scans) if config.dynamic_vehicle_filter else 0)
+                        len(scans) if config.dynamic_vehicle_filter else 0, reference=not pl._fast_ok(config))
         runs[graph] = dict(odom=odom, auxes=auxes, traj=traj, ms=ms, launches=launches)
     on, off = runs[True], runs[False]
     if not np.array_equal(on["traj"], off["traj"]):
@@ -1525,7 +1608,7 @@ def graph_pair(label: str, config, scans, tss=None, ref_traj=None, per_frame: in
           f"{chunk}): poses, iterations {sum(on['odom'].icp_iters)}, {len(on['auxes'])} aux reads, totals, final "
           f"map{' and grid' if a.grid is not None else ''}; ms/frame graph {on['ms']:.3f}, eager {off['ms']:.3f} "
           f"(first frame and captures included); launches graph {on['launches']}", flush=True)
-    return {g: (r["odom"], r["ms"]) for g, r in runs.items()}
+    return {g: (r["odom"], r["ms"], r["launches"]) for g, r in runs.items()}
 
 
 def recorded_steps(config, scans, n: int = 64) -> list:
@@ -1586,9 +1669,12 @@ def icp_step_row(config, scans) -> dict:
           f"{statuses.count(ik.RUNNING)} running, {statuses.count(ik.DONE)} done, {statuses.count(ik.REANCHOR)} "
           f"re-anchor); kernel {step_ms:.4f} ms a step, {noop_ms:.4f} ms a no-op step; plain {plain_ms:.4f} ms",
           flush=True)
-    # the bound: 72 B of sums and ~200 B of state read and written once,
-    # ~700 float32 operations; launch latency, not this, is the floor
-    b_ms, b_by = bound(18 * 4 + 2 * (ik.LOOP_F * 4 + ik.LOOP_I * 4), 700)
+    # the bound: the bytes a running step touches, once: it reads the 18
+    # sums, T_icp (16 floats), the anchor's position and r_scan (4) and
+    # two status words, and writes T_icp, |x|, the drift and three status
+    # words (160 B read, 84 B written); ~700 float32 operations. Launch
+    # latency, not this, is the floor
+    b_ms, b_by = bound((18 + 16 + 4 + 2) * 4 + (16 + 2 + 3) * 4, 700)
     return dict(route="cuda", source="sage_icp_tpu_torch/csrc/icp_step.cu",
                 replaces="sage_icp_tpu/ops/registration.py:270 (no TPU kernel: the lax.while_loop body)",
                 max_abs_err=err, ms=step_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
@@ -1617,7 +1703,7 @@ def sync_free_check(label: str, config, scans) -> None:
     from sage_icp_tpu_torch.models import pipeline as pl
 
     odom = pl.SageICP(config, graph=False)
-    step = odom._device_step()
+    step = odom._step
     bufs = torch.from_numpy(odom.pad_chunk(scans)).to("cuda")
     state, *_ = step(odom.state, bufs[0])
     torch.cuda.synchronize()
@@ -1729,6 +1815,137 @@ def graph_phase(city_scans, kitti_scans, skewed, tss, refs: dict) -> dict:
     return row
 
 
+def recorded_ref_steps(config, scans, n: int = 64) -> list:
+    """The first `n` reference steps of an eager drive over `scans` that
+    ran (status RUNNING): (JTJ, JTr, ncorr, loop_f, loop_i) before each,
+    cloned."""
+    from sage_icp_tpu_torch.models.pipeline import SageICP
+    from sage_icp_tpu_torch.ops import icp_kernel as ik
+
+    seen = []
+    orig = ik.icp_ref_step
+
+    def spy(JTJ, JTr, ncorr, f, i, max_iterations):
+        if len(seen) < n and int(i[ik.I_STATUS]) == ik.RUNNING:
+            seen.append((JTJ.clone(), JTr.clone(), ncorr.clone(), f.clone(), i.clone(), max_iterations))
+        return orig(JTJ, JTr, ncorr, f, i, max_iterations)
+
+    odom = SageICP(config, graph=False)
+    ik.icp_ref_step = spy
+    try:
+        for scan in scans:
+            odom.register_frame(scan)
+            if len(seen) >= n:
+                break
+    finally:
+        ik.icp_ref_step = orig
+    return seen
+
+
+def icp_ref_step_row(config, scans) -> dict:
+    """Phase 15.2: the reference step kernel against its plain version bit
+    for bit on the steps an eager drive recorded, and its times: a step,
+    a no-op step (a stopped loop's slot), the plain version. Returns its
+    kernel-table row."""
+    from sage_icp_tpu_torch.ops import icp_kernel as ik
+
+    rec = recorded_ref_steps(config, scans)
+    statuses, err = [], 0.0
+    for JTJ, JTr, nc, f, i, max_it in rec:
+        fk, ik_, fp, ip = f.clone(), i.clone(), f.clone(), i.clone()
+        ik.icp_ref_step(JTJ, JTr, nc, fk, ik_, max_it)
+        ik.icp_ref_step_plain(JTJ, JTr, nc, fp, ip, max_it)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_diff((fk, ik_), (fp, ip)))
+        if not (torch.equal(fk, fp) and torch.equal(ik_, ip)):
+            fail(f"icp_ref_step differs from its plain version on a recorded step: {max_abs_diff((fk,), (fp,))}, "
+                 f"{ik_.tolist()} vs {ip.tolist()}")
+        statuses.append(int(ik_[ik.I_STATUS]))
+    JTJ, JTr, nc, f, i, max_it = rec[0]
+    copies = iter([(f.clone(), i.clone()) for _ in range(160)])
+    step_ms = time_ms(lambda: ik.icp_ref_step(JTJ, JTr, nc, *next(copies), max_it))
+    plain = iter([(f.clone(), i.clone()) for _ in range(160)])
+    plain_ms = time_ms(lambda: ik.icp_ref_step_plain(JTJ, JTr, nc, *next(plain), max_it))
+    done = i.clone()
+    done[ik.I_STATUS] = ik.DONE
+    stopped = f.clone()
+    noop_ms = time_ms(lambda: ik.icp_ref_step(JTJ, JTr, nc, stopped, done, max_it))  # writes est = I only
+    print(f"icp_ref_step: bit for bit against its plain version on {len(rec)} recorded kitti reference steps "
+          f"(statuses after: {statuses.count(ik.RUNNING)} running, {statuses.count(ik.DONE)} done); kernel "
+          f"{step_ms:.4f} ms a step, {noop_ms:.4f} ms a no-op step; plain {plain_ms:.4f} ms", flush=True)
+    # the bound: the bytes a running step touches, once: it reads JTJ,
+    # JTr and the count (172 B), T_icp and two status words (72 B), and
+    # writes T_icp, est, |x| and three status words (144 B): 388 B; the
+    # anchor, max_corr, kernel, drift and r_scan stay untouched. ~700
+    # float32 operations
+    b_ms, b_by = bound((36 + 6 + 1) * 4 + (16 + 2) * 4 + (16 + 16 + 1 + 3) * 4, 700)
+    return dict(route="cuda", source="sage_icp_tpu_torch/csrc/icp_step.cu",
+                replaces="sage_icp_tpu/ops/registration.py:315 (no TPU kernel: the reference lax.while_loop body)",
+                max_abs_err=err, ms=step_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def reference_phase(kitti_scans, gt) -> dict:
+    """Phase 15: PRESETS["kitti"] with use_fast_correspondences=False (the
+    reference-shaped ICP loop, registration.RefLoop) on phase 6's scans.
+    Returns icp_ref_step's kernel-table row with its launches on the
+    captured drive."""
+    from sage_icp_tpu_torch.models.pipeline import PRESETS, SageICP
+    from sage_icp_tpu_torch.ops import registration as reg
+
+    n = WARMUP + FRAMES
+    cfg = dataclasses.replace(PRESETS["kitti"], use_fast_correspondences=False)
+    chosen = reg.REF_BLOCK_ITERATIONS
+    runs = graph_pair("kitti reference path", cfg, kitti_scans[:n])
+    odom, _, launches = runs[True]
+    ate = ate_of(odom.trajectory(), gt[:n])
+    if not np.isfinite(ate) or ate >= 0.05:
+        fail(f"kitti reference path: ATE {ate} m over {n} frames")
+    per_frame = odom.iteration_counts()
+    print(f"kitti reference path: ATE {ate:.5f} m; ICP iterations a frame {per_frame.tolist()} (mean "
+          f"{per_frame.mean():.2f}); launches of the captured run {launches}", flush=True)
+    eager_loop = runs[False][0]._step._loop  # the last frame's loop: its searches cost what any block's do
+    iter_ms = kernel_ms(eager_loop.block) / reg.REF_BLOCK_ITERATIONS
+    print(f"kitti reference path: device ms per iteration (search, normal equations, step, source update; "
+          f"torch.profiler's kernel time of a block over its {reg.REF_BLOCK_ITERATIONS}): {iter_ms:.4f}", flush=True)
+    del runs, odom, eager_loop
+    row = icp_ref_step_row(cfg, kitti_scans[:n])
+    sync_free_check("kitti reference path", cfg, kitti_scans[:6])
+
+    # the block length: the captured drive at 1, 2, 4 and 8 iterations a block
+    # (alternated), its host profile at each, and the eager step's at the
+    # package's
+    lengths = (1, 2, 4, 8)
+    ms = {b: [] for b in lengths}
+    try:
+        for b in lengths + lengths[::-1]:
+            reg.REF_BLOCK_ITERATIONS = b
+            o = SageICP(cfg)
+            elapsed, got = register(o, kitti_scans, WARMUP, n)
+            expect_launches(f"kitti reference path, blocks of {b}", got, sum(o.icp_iters), n, n, reference=True)
+            ms[b].append(1e3 * elapsed / FRAMES)
+        for b, graph in [(b, True) for b in lengths] + [(chosen, False)]:
+            reg.REF_BLOCK_ITERATIONS = b
+            o = SageICP(cfg, graph=graph)
+            for scan in kitti_scans[:WARMUP]:
+                o.register_frame(scan)
+            host_profile(f"kitti reference path, blocks of {b}, graph={graph}", o, kitti_scans[WARMUP:WARMUP + 5])
+        reg.REF_BLOCK_ITERATIONS = chosen
+        eager = []
+        for _ in range(2):
+            o = SageICP(cfg, graph=False)
+            elapsed, _ = register(o, kitti_scans, WARMUP, n)
+            eager.append(round(1e3 * elapsed / FRAMES, 3))
+    finally:
+        reg.REF_BLOCK_ITERATIONS = chosen
+    med = {b: float(np.median(v)) for b, v in ms.items()}
+    print(f"kitti reference path: ms/frame over {FRAMES} timed frames after {WARMUP}, captured, by block length "
+          f"{ {b: [round(x, 3) for x in v] for b, v in ms.items()} } (alternated 1, 2, 4, 8, 8, 4, 2, 1; medians "
+          f"{ {b: round(m, 3) for b, m in med.items()} }, least at {min(med, key=med.get)}); eager at "
+          f"{chosen}: {eager}; the package's block length {chosen}", flush=True)
+    row["launches"] = launches["icp_ref_step"]
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true", help="stop after phase 3")
@@ -1789,6 +2006,8 @@ def main() -> int:
     rows["icp_step"] = graph_phase(city_scans, kitti_scans, skewed, tss,
                                    {"city": city_traj, "kitti": kitti_traj, "deskew": deskew_odom.trajectory()})
     print_row("icp_step", rows["icp_step"])
+    ref_row = reference_phase(kitti_scans, kitti_gt)
+    print_row("icp_ref_step", ref_row)
     if args.profile:
         profile("city", city, city_scans[n:])
         profile("kitti", kitti, kitti_scans[n:])
@@ -1799,6 +2018,7 @@ def main() -> int:
     # the sort kernel's check on the filter's keys
     launches.update(fused_semantic_nn=nn_launches, bitonic_sort_planes=sort_launches)
     table = [dict(name=name, launches=launches[name], **row) for name, row in rows.items()]
+    table.append(dict(name="icp_ref_step", **ref_row))  # its launches: phase 15's captured drive
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

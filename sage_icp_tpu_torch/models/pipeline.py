@@ -11,7 +11,8 @@ One step (odometry_step) runs, as in the reference's sageICP.cpp:
 on fixed-capacity tensors of one device. make_step, make_step_packed
 and make_chunk_step (DeviceStep) run it as a device program, the JAX
 package's jitted steps: the state donated and updated in place, the ICP
-loop on the device, and on the card the frame captured as CUDA graphs.
+loop on the device (either branch), and on the card the frame captured as
+CUDA graphs, also over a mesh of NCCL ranks (parallel/sharding.py).
 SageICP wraps that step with the host-side padding, the trajectory log
 and the chunked offline mode. A
 scan goes to the device as one packed (cap, 4|5) buffer: xyz, label and,
@@ -356,7 +357,8 @@ def finish_step(state: OdomState, prep: dict, icp: reg.IcpResult, config: SageCo
     """Everything of the step after the ICP solve: the solve-health guard,
     the map insert and cull, the new state and the aux. Returns
     odometry_step's (new_state, pose, aux, landmark_cells_dropped).
-    in_place: state.map is a donated map (hashmap.donated), updated in
+    in_place: state.map is a donated map (a spare row behind each tensor,
+    as hashmap.create and hashmap.with_spare make them), updated in
     place; the returned state's other fields are new tensors."""
     dev = icp.pose.device
     source_valid = prep["source_valid"]
@@ -499,6 +501,28 @@ def _small_fields(state: OdomState) -> list:
             state.reject_streak]
 
 
+def _take(state: OdomState, device, donate: bool) -> OdomState:
+    """A step's own state from the caller's `state`. With donate, each
+    tensor already on `device` (a map tensor with hashmap's spare row
+    behind it) whose storage no other field shares is taken as it is;
+    every other tensor is copied."""
+    taken = set()
+
+    def own(t, map_tensor: bool):
+        if t is None:
+            return None
+        moved = t.to(device)
+        key = moved.untyped_storage().data_ptr()
+        if donate and moved is t and key not in taken and (not map_tensor or hm.has_spare(t)):
+            taken.add(key)
+            return t
+        return hm.with_spare(moved) if map_tensor else moved.clone()
+
+    small = [own(t, False) for t in _small_fields(state)]
+    return OdomState(hm.MapState(*[own(t, True) for t in state.map]), *small[:4], ThresholdState(*small[4:7]),
+                     small[7])
+
+
 def _zero_aux(device) -> StepAux:
     return StepAux(*[torch.zeros((), dtype=torch.float32 if f == "sigma" else torch.int32, device=device)
                      for f in StepAux._fields])
@@ -515,9 +539,12 @@ def _capture_graph(fn, stream: torch.cuda.Stream) -> torch.cuda.CUDAGraph:
     """fn's launches, captured on `stream` (run by replay()). The stream is
     the step's own: torch.cuda.graph's default capture stream is made
     once a process, on the device current then, and a capture on that
-    stream would switch to its device."""
+    stream would switch to its device. The capture refuses unsafe calls
+    from this thread only ("thread_local"): ProcessGroupNCCL's watchdog
+    thread queries its events meanwhile, which a "global" capture would
+    count against the graph."""
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=stream):
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
         fn()
     return graph
 
@@ -533,21 +560,28 @@ class DeviceStep:
     make_step_packed, make_chunk_step and SageICP on one device.
 
     The state lives in the step's own buffers and is updated in place
-    (the map through hashmap.donated): the counterpart of the JAX step's
-    donated state. A state the step did not return is copied in once. The
-    frame's inputs are copied into fixed input buffers, and the ICP loop
-    stays on the device (registration.IcpLoop): the host reads its status
-    once per block of iterations and nothing else.
+    (each map tensor with a spare row behind it: hashmap.with_spare).
+    donate=True (the JAX step's donate_argnums): the first state it is
+    given becomes its own where it can, each tensor already on the device (a map tensor with
+    hashmap's spare row behind it, as hashmap.create makes them) taken
+    as it is and updated in place, the others copied; donate=False
+    copies that state in and never writes to the caller's tensors. A
+    later state the step did not return is copied in. The frame's inputs
+    are copied into fixed input buffers, and the ICP loop stays on the
+    device (registration.IcpLoop, or RefLoop without fast
+    correspondences): the host reads its status once per block of
+    iterations and nothing else.
 
     graph=True (a CUDA device): the first call runs the frame eagerly on
     a side stream, which builds the kernels, their scratch and every
-    constant; then four pieces are captured as CUDA graphs and replayed
-    on every later frame:
+    constant (and, on a mesh, NCCL's communicator); then the pieces are
+    captured as CUDA graphs and replayed on every later frame:
         prepare   preprocess, filter, deskew, downsample, threshold,
                   prediction, probe tables, the first row setup and the
                   first block of ICP iterations;
         block     a block of ICP iterations;
-        reanchor  the rows rebuilt at the current pose, then a block;
+        reanchor  the rows rebuilt at the current pose, then a block
+                  (the frozen-rows loop only);
         finish    guard, renormalize, insert, cull, the state, the aux
                   and the running totals.
     A failed capture raises; nothing falls back. graph=False runs the same
@@ -556,28 +590,33 @@ class DeviceStep:
 
     mesh (parallel.sharding.Mesh): the GN rows and, with shard_insert,
     the insert's policy rows are split across its ranks, as in
-    odometry_step; such a step runs eagerly (its collectives are not
-    captured).
+    odometry_step. Over NCCL (or in a world without a group) the
+    collectives are captured with the rest: every rank replays the same
+    graphs in the same order, since the summed GN terms, and so the
+    status, are the same on every rank. A gloo mesh copies through the
+    host and cannot be captured: graph=True raises there. NCCL's
+    communicator waits, when it is destroyed, for every graph that holds
+    its kernels: release() a mesh step's graphs before
+    torch.distributed.destroy_process_group.
 
     The returned pose, aux and totals are the step's own tensors, valid
     until the next call. Running totals (`totals`, `lmk_total`) fold every
     frame as SageICP.aux_totals does; `reset_totals` zeroes them."""
 
     def __init__(self, config: SageConfig, device=None, graph: bool = True, packed: bool = True, mesh=None,
-                 shard_insert: bool = True):
+                 shard_insert: bool = True, donate: bool = True):
         self.config = config
+        if graph and mesh is not None and not mesh.captures:
+            raise ValueError(f"graph=True captures the step's collectives on a card over NCCL; a mesh on "
+                             f"{mesh.device} over the {mesh.backend} backend cannot be captured (gloo copies "
+                             "through the host): pass graph=False")
         self.device = resolve_device(device)
-        if graph and mesh is not None:
-            raise ValueError("a sharded step runs eagerly (its collectives are not captured): pass graph=False")
         self.mesh, self.shard_insert = mesh, shard_insert
         if graph and self.device.type != "cuda":
             raise ValueError(f"graph=True captures CUDA graphs and needs a CUDA device, not {self.device}: "
                              "pass graph=False")
         self.fast_params = _fast_params(config)
-        if graph and self.fast_params is None:
-            raise ValueError("graph=True needs the frozen-rows ICP (use_fast_correspondences on a supported "
-                             "range): the reference-shaped search loops on the host; pass graph=False")
-        self.graph, self.packed = graph, packed
+        self.graph, self.packed, self.donate = graph, packed, donate
         geo.pin_full_fp32()
         self.state: OdomState | None = None
         self._input: list | None = None
@@ -589,14 +628,15 @@ class DeviceStep:
     def reset_totals(self) -> None:
         torch._foreach_zero_([*self.totals, self.lmk_total])
 
+    def release(self) -> None:
+        """Drop the captured graphs; the next call captures anew."""
+        self._graphs = None
+
     def _adopt(self, state: OdomState) -> None:
         if state is self.state:
             return
         if self.state is None:
-            small = [t.to(self.device).clone() for t in _small_fields(state)]
-            self.state = OdomState(hm.donated(hm.MapState(*[None if t is None else t.to(self.device)
-                                                           for t in state.map])),
-                                   *small[:4], ThresholdState(*small[4:7]), small[7])
+            self.state = _take(state, self.device, self.donate)
             return
         hm.copy_into(self.state.map, state.map)
         for d, s in zip(_small_fields(self.state), _small_fields(state)):
@@ -616,19 +656,17 @@ class DeviceStep:
         self._prep = prep = prepare_icp_inputs(self.state, pts, valid, ts, cfg)
         args = _icp_args(self.state.map, prep, cfg)
         if self.fast_params is None:
-            self._loop = None
-            self._icp = reg.register_frame(*args, max_iterations=cfg.max_icp_iterations,
-                                           probe_depth=cfg.probe_depth, tables=prep["tables"], mesh=self.mesh)
-            return
-        self._loop = reg.IcpLoop(*args, cfg.max_icp_iterations, cfg.probe_depth, self.fast_params, prep["tables"],
-                                 self.mesh)
+            self._loop = reg.RefLoop(*args, cfg.max_icp_iterations, cfg.probe_depth)
+        else:
+            self._loop = reg.IcpLoop(*args, cfg.max_icp_iterations, cfg.probe_depth, self.fast_params,
+                                     prep["tables"], self.mesh)
         self._loop.block()
 
     def _drive(self) -> None:
         """Blocks (and re-anchors) until the loop is done: one status read
         per block."""
         loop, graphs = self._loop, self._graphs
-        while loop is not None and (s := loop.status()) != ik.DONE:
+        while (s := loop.status()) != ik.DONE:
             if graphs is not None:
                 graphs["reanchor" if s == ik.REANCHOR else "block"].replay()
                 continue
@@ -637,7 +675,7 @@ class DeviceStep:
             loop.block()
 
     def _finish(self) -> None:
-        icp = self._icp if self._loop is None else self._loop.result()
+        icp = self._loop.result()
         new, pose, aux, lmk = finish_step(self.state, self._prep, icp, self.config, self.mesh, self.shard_insert,
                                           in_place=True)
         for d, s in zip(_small_fields(self.state), _small_fields(new)):
@@ -665,7 +703,8 @@ class DeviceStep:
         out = self._out
         graphs = {"prepare": _capture_graph(self._prepare, side)}
         graphs["block"] = _capture_graph(self._loop.block, side)
-        graphs["reanchor"] = _capture_graph(lambda: (self._loop.reanchor(), self._loop.block()), side)
+        if self.fast_params is not None:
+            graphs["reanchor"] = _capture_graph(lambda: (self._loop.reanchor(), self._loop.block()), side)
         graphs["finish"] = _capture_graph(self._finish, side)
         self._graphs = graphs
         return out
@@ -702,21 +741,22 @@ class DeviceStep:
         return state, poses, iters, self.chunk_totals, self.chunk_lmk
 
 
-def make_step(config: SageConfig, graph: bool = True, device=None) -> DeviceStep:
+def make_step(config: SageConfig, graph: bool = True, device=None, donate: bool = True) -> DeviceStep:
     """The device-resident step: step(state, points, valid, timestamps)
     -> (state', pose, aux, landmark_cells_dropped), odometry_step's values,
     with the state updated in place (DeviceStep). graph=True captures it
     as CUDA graphs (a CUDA device only; on the CPU it raises), graph=False
     runs it eagerly: the counterparts of the JAX package's jit=True and
-    jit=False."""
-    return DeviceStep(config, device, graph, packed=False)
+    jit=False. donate=True updates the caller's state in place, as JAX's
+    donated step consumes it; donate=False leaves it untouched."""
+    return DeviceStep(config, device, graph, packed=False, donate=donate)
 
 
-def make_step_packed(config: SageConfig, graph: bool = True, device=None) -> DeviceStep:
+def make_step_packed(config: SageConfig, graph: bool = True, device=None, donate: bool = True) -> DeviceStep:
     """make_step from one packed (scan_capacity, 4|5) buffer, float32 or
     int16 (pad_chunk's rows): step(state, packed) -> (state', pose, aux,
     landmark_cells_dropped)."""
-    return DeviceStep(config, device, graph, packed=True)
+    return DeviceStep(config, device, graph, packed=True, donate=donate)
 
 
 def make_chunk_step(config: SageConfig, chunk: int, graph: bool = True, device=None):
@@ -742,22 +782,20 @@ class SageICP:
 
     It runs the device-resident step (DeviceStep): captured as CUDA graphs
     on the card (graph=None or True), eager on the CPU (graph=None or
-    False); graph=True on the CPU raises. With a mesh
-    (parallel.sharding.ShardedSageICP) the step is sharded and eager."""
+    False), with either ICP branch; graph=True on the CPU raises. With a
+    mesh (parallel.sharding.Mesh; ShardedSageICP passes one) the step is
+    sharded."""
 
-    def __init__(self, config: SageConfig | str = "kitti", device=None, graph: bool | None = None):
+    def __init__(self, config: SageConfig | str = "kitti", device=None, graph: bool | None = None, mesh=None):
         if isinstance(config, str):
             config = PRESETS[config]
         self.config = config
         self.device = resolve_device(device)
-        self.mesh = None  # parallel.sharding.ShardedSageICP sets its mesh
         if graph is None:
-            graph = self.device.type == "cuda" and _fast_ok(config)
-        if graph and self.device.type != "cuda":
-            raise ValueError(f"graph=True captures CUDA graphs and needs a CUDA device, not {self.device}")
-        self.graph = bool(graph)
-        self._step: DeviceStep | None = None
+            graph = self.device.type == "cuda"
+        self.graph, self.mesh = bool(graph), mesh
         geo.pin_full_fp32()
+        self._step = DeviceStep(self.config, self.device, self.graph, packed=True, mesh=mesh)
         self.reinitialize()
 
     def reinitialize(self):
@@ -767,13 +805,12 @@ class SageICP:
         self.timings: list[float] = []
         self._iters: list = []  # per-frame iterations, (n,) int32 device tensors
         self._last_aux = None
-        if self._step is not None:
-            self._step.reset_totals()
+        self._step.reset_totals()
 
-    def _device_step(self) -> DeviceStep:
-        if self._step is None:
-            self._step = DeviceStep(self.config, self.device, self.graph, packed=True, mesh=self.mesh)
-        return self._step
+    def release(self) -> None:
+        """Drop the step's captured graphs (DeviceStep.release): before
+        destroy_process_group on a mesh of NCCL ranks."""
+        self._step.release()
 
     def pad_chunk(self, scans: list, timestamps: list | None = None) -> np.ndarray:
         """(W, scan_capacity, 4|5) packed host buffer: float32 rows padded
@@ -814,7 +851,7 @@ class SageICP:
         waiting; trajectory() fetches it."""
         buf = self.pad_chunk([points], None if timestamps is None else [timestamps])[0]
         t0 = time.perf_counter()
-        self.state, pose, aux, _ = self._device_step()(self.state, torch.from_numpy(buf))
+        self.state, pose, aux, _ = self._step(self.state, torch.from_numpy(buf))
         self._record(aux, aux.icp_iterations.clone())
         pose = pose.cpu().numpy() if block else pose.clone()
         self.timings.append(time.perf_counter() - t0)
@@ -831,7 +868,7 @@ class SageICP:
         if isinstance(scans, list):
             scans = self.pad_chunk(scans, timestamps)
         dev_scans = torch.as_tensor(scans).to(self.device)
-        self.state, poses, iters, aux, _ = self._device_step().chunk(self.state, dev_scans)
+        self.state, poses, iters, aux, _ = self._step.chunk(self.state, dev_scans)
         self._record(aux, iters)
         self.poses.append(poses)
         return poses
@@ -856,13 +893,13 @@ class SageICP:
         """Counters over every frame since the last reinitialize: drop
         counters summed, occupancy maxed, sigma/iterations/correspondences
         of the last frame."""
-        return StepAux(*[np.asarray(a.cpu()) for a in self._device_step().totals])
+        return StepAux(*[np.asarray(a.cpu()) for a in self._step.totals])
 
     def landmark_cells_dropped(self) -> int:
         """Landmark cells the dynamic filter dropped beyond its capacity,
         summed over every frame since the last reinitialize (a silent drop
         of the JAX package, counted here outside StepAux)."""
-        return int(self._device_step().lmk_total)
+        return int(self._step.lmk_total)
 
     def trajectory(self) -> np.ndarray:
         """(N, 4, 4) poses; the poses held on the device come over in one

@@ -45,7 +45,7 @@ NVCC_FLAGS = (
 )
 
 KERNELS = ("fused_semantic_nn", "fused_gn_iteration", "apply_policy", "radius_count", "bitonic_sort_planes",
-           "icp_step")
+           "icp_step", "icp_ref_step")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], object] = {}

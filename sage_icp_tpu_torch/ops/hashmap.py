@@ -33,10 +33,11 @@ remove_far return new tensors and leave the input state untouched. The
 one large copy per frame is the (C, 4, K) block buffer (42 MB at the city
 preset, tens of microseconds on the card); with the dense index, the 32
 MiB grid is copied once by insert and once by remove_far. With
-in_place=True they update a donated map (`donated`: every tensor the
-first rows of a buffer with one spare row, where dropped writes land) in
-place and copy nothing, the counterpart of the JAX step's donated state;
-every read of the old map comes before the first write.
+in_place=True they update a donated map (`create`'s layout, or
+`with_spare`'s copy: every tensor the first rows of a buffer with one
+spare row, where dropped writes land) in place and copy nothing, the
+counterpart of the JAX step's donated state; every read of the old map
+comes before the first write.
 """
 
 from __future__ import annotations
@@ -102,13 +103,17 @@ def create(capacity: int, points_per_voxel: int, device=None, dtype=torch.float3
         raise ValueError(f"map capacity {capacity} is not a power of two")
     grid = None
     if dense_grid:
-        grid = torch.zeros((GRID_SIZE, 2), dtype=torch.int32, device=device)
+        grid = torch.zeros((GRID_SIZE + 1, 2), dtype=torch.int32, device=device)[:GRID_SIZE]
         grid[:, 0].fill_(-1)
+    # each tensor the first rows of a buffer with a spare row (the
+    # donated layout, has_spare), so a step can take the map as it is
+    # and update it in place
+    n = capacity + 1
     return MapState(
-        keys=torch.full((capacity, 3), EMPTY_KEY, dtype=torch.int32, device=device),
-        counts=torch.zeros((capacity,), dtype=torch.int32, device=device),
-        points=torch.zeros((capacity, 4, points_per_voxel), dtype=torch.int16, device=device),
-        first_pts=torch.full((capacity, 3), INVALID_COORD, dtype=dtype, device=device),
+        keys=torch.full((n, 3), EMPTY_KEY, dtype=torch.int32, device=device)[:capacity],
+        counts=torch.zeros((n,), dtype=torch.int32, device=device)[:capacity],
+        points=torch.zeros((n, 4, points_per_voxel), dtype=torch.int16, device=device)[:capacity],
+        first_pts=torch.full((n, 3), INVALID_COORD, dtype=dtype, device=device)[:capacity],
         grid=grid,
     )
 
@@ -160,19 +165,26 @@ def set_rows(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor, write: tor
     return out[:n]
 
 
-def _spare(t: torch.Tensor) -> torch.Tensor:
-    """The buffer behind a donated map tensor: t's rows and one spare."""
+def has_spare(t: torch.Tensor) -> bool:
+    """Whether t is the first rows of a buffer with one spare row behind
+    them (a map tensor that can be updated in place)."""
     base = t._base
-    if (base is None or base.data_ptr() != t.data_ptr() or not t.is_contiguous()
-            or base.numel() != (t.shape[0] + 1) * (t.numel() // max(t.shape[0], 1))):
-        raise ValueError("in_place needs a donated map (hashmap.donated): a tensor with a spare row behind it")
-    return base.view((t.shape[0] + 1, *t.shape[1:]))
+    return (base is not None and base.data_ptr() == t.data_ptr() and t.is_contiguous()
+            and base.numel() == (t.shape[0] + 1) * (t.numel() // max(t.shape[0], 1)))
 
 
-def donated(state: MapState) -> MapState:
-    """A copy of the map for in-place updates: each tensor the first rows
-    of a buffer with one spare row."""
-    return MapState(*[None if t is None else torch.cat([t, t[:1]])[: t.shape[0]] for t in state])
+def _spare(t: torch.Tensor) -> torch.Tensor:
+    """The buffer behind a donated map tensor (has_spare): t's rows and one
+    spare."""
+    if not has_spare(t):
+        raise ValueError("in_place needs a donated map (hashmap.create or with_spare): a tensor with a spare row "
+                         "behind it")
+    return t._base.view((t.shape[0] + 1, *t.shape[1:]))
+
+
+def with_spare(t: torch.Tensor) -> torch.Tensor:
+    """A copy of t as the first rows of a buffer with one spare row."""
+    return torch.cat([t, t[:1]])[: t.shape[0]]
 
 
 def copy_into(dst: MapState, src: MapState) -> None:

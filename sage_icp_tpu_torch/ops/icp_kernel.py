@@ -9,11 +9,20 @@ is not orthonormal), T_icp <- exp(x) T_icp, and the loop's tests. It has
 no TPU kernel to replace: in the JAX package this is plain jnp inside
 register_frame's lax.while_loop (sage_icp_tpu/ops/registration.py:270-289).
 
+Its reference mode (icp_ref_step) is the body of the reference-shaped loop
+(registration.RefLoop; JAX :315-333) after the search and the normal
+equations: the same solve from JTJ and JTr, the pose update, the count and
+the exit test (|x| < 1e-4 or max_iterations), no drift and no re-anchor.
+It writes exp(x) to the state's `est`, and the identity once the loop has
+stopped, so the source update source <- est . source that follows it is an
+ordinary device op that leaves a stopped loop's source as it is.
+
 The loop's state is two small device tensors, updated in place:
 
     loop_f  float32 (LOOP_F,)  anchor (4x4) | T_icp (4x4) | max_corr |
                                kernel | |x| of the last step | drift |
-                               r_scan
+                               r_scan | 3 unused | est (4x4, the
+                               reference mode's)
     loop_i  int32 (LOOP_I,)    iterations | correspondences | status
 
 status RUNNING lets the next GN iteration and step run; DONE (converged:
@@ -39,16 +48,18 @@ import torch
 from sage_icp_tpu_torch.ops import cuda_lib
 from sage_icp_tpu_torch.ops.constants import device_constant
 
-LOOP_F = 40
+LOOP_F = 56
 LOOP_I = 4
 F_ANCHOR = slice(0, 16)
 F_T = slice(16, 32)
+F_EST = slice(40, 56)
 F_MAX_CORR, F_KERNEL, F_NORM, F_DRIFT, F_R_SCAN = 32, 33, 34, 35, 36
 I_ITERATIONS, I_NCORR, I_STATUS = 0, 1, 2
 RUNNING, DONE, REANCHOR = 0, 1, 2
-ESTIMATION_THRESHOLD = 1e-4  # registration.ESTIMATION_THRESHOLD
+ESTIMATION_THRESHOLD = 1e-4  # the reference loop stops below this |x|
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 2
+_REF_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
 
 
 def icp_step(sums, loop_f, loop_i, max_iterations: int, drift_lim: float) -> None:
@@ -63,6 +74,23 @@ def icp_step(sums, loop_f, loop_i, max_iterations: int, drift_lim: float) -> Non
     p = cuda_lib.ptr
     cuda_lib.call("icp_step", fn, sums.device, p(sums), p(loop_f), p(loop_i), int(max_iterations),
                   float(drift_lim))
+
+
+def icp_ref_step(JTJ, JTr, ncorr, loop_f, loop_i, max_iterations: int) -> None:
+    """One step of the reference-shaped loop from its (6, 6) JTJ, (6,) JTr
+    and 0-dim int32 correspondence count, in place on loop_f / loop_i;
+    with a status other than RUNNING it only sets est to the identity."""
+    if cuda_lib.on_cpu(JTJ):
+        return icp_ref_step_plain(JTJ, JTr, ncorr, loop_f, loop_i, max_iterations)
+    cuda_lib.check_cuda("JTJ", JTJ, torch.float32, (6, 6))
+    cuda_lib.check_cuda("JTr", JTr, torch.float32, (6,))
+    cuda_lib.check_cuda("ncorr", ncorr, torch.int32, ())
+    cuda_lib.check_cuda("loop_f", loop_f, torch.float32, (LOOP_F,))
+    cuda_lib.check_cuda("loop_i", loop_i, torch.int32, (LOOP_I,))
+    fn = cuda_lib.function("icp_step.cu", "sage_icp_ref_step", _REF_ARGTYPES)
+    p = cuda_lib.ptr
+    cuda_lib.call("icp_ref_step", fn, JTJ.device, p(JTJ), p(JTr), p(ncorr), p(loop_f), p(loop_i),
+                  int(max_iterations))
 
 
 def _sum(terms, like):
@@ -88,8 +116,14 @@ def solve_increment(sums: torch.Tensor):
     correspondences): the kernel's solve. 0-dim tensors throughout."""
     from sage_icp_tpu_torch.ops.nn_kernels import assemble_normal_equations
 
-    dev = sums.device
     JTJ, JTr, ncorr, _ = assemble_normal_equations(sums)
+    return (*solve_system(JTJ, JTr), ncorr)
+
+
+def solve_system(JTJ: torch.Tensor, JTr: torch.Tensor):
+    """(JTJ + 1e-8 I) x = -JTr by the kernel's Cholesky -> (x (6,) after
+    the finite guard and the clamp, |x|)."""
+    dev = JTJ.device
     A = [[JTJ[i, j] + (1e-8 if i == j else 0.0) for j in range(6)] for i in range(6)]
     b = [-JTr[i] for i in range(6)]
     tiny = _c(1e-30, dev)
@@ -112,7 +146,7 @@ def solve_increment(sums: torch.Tensor):
     n = torch.sqrt(_sum([x[i] * x[i] for i in range(6)], tiny))
     x = torch.where(n > 10.0, x * (_c(10.0, dev) / torch.where(n > tiny, n, tiny)), x)
     norm = torch.sqrt(_sum([x[i] * x[i] for i in range(6)], tiny))
-    return x, norm, ncorr
+    return x, norm
 
 
 def se3_exp(x: torch.Tensor) -> torch.Tensor:
@@ -168,4 +202,21 @@ def icp_step_plain(sums, loop_f, loop_i, max_iterations: int, drift_lim: float) 
                        loop_f[F_DRIFT + 1:]])
     new_i = torch.stack([it, ncorr, status, loop_i[3]]).to(torch.int32)
     loop_f.copy_(torch.where(running, new_f, loop_f))
+    loop_i.copy_(torch.where(running, new_i, loop_i))
+
+
+def icp_ref_step_plain(JTJ, JTr, ncorr, loop_f, loop_i, max_iterations: int) -> None:
+    running = loop_i[I_STATUS] == RUNNING
+    x, norm = solve_system(JTJ, JTr)
+    est = se3_exp(x)
+    Tn = compose(est, loop_f[F_T].reshape(4, 4))
+    it = loop_i[I_ITERATIONS] + 1
+    more = (it < max_iterations) & (norm >= ESTIMATION_THRESHOLD)
+    status = torch.where(more, RUNNING, DONE).to(torch.int32)
+    new_f = torch.cat([loop_f[F_ANCHOR], Tn.reshape(-1), loop_f[F_MAX_CORR:F_NORM], norm[None],
+                       loop_f[F_NORM + 1:F_EST.start], est.reshape(-1)])
+    eye = torch.eye(4, dtype=loop_f.dtype, device=loop_f.device).reshape(-1)
+    stopped = torch.cat([loop_f[:F_EST.start], eye])
+    new_i = torch.stack([it, ncorr.to(torch.int32), status, loop_i[3]]).to(torch.int32)
+    loop_f.copy_(torch.where(running, new_f, stopped))
     loop_i.copy_(torch.where(running, new_i, loop_i))

@@ -23,14 +23,21 @@ blocks, at T_icp @ anchor, on the device. IcpLoop exposes the pieces
 (its constructor, block, reanchor, result; status between them) that a
 captured step (models/pipeline.py::DeviceStep) records as CUDA graphs.
 
-The reference-shaped branch (fast_params=None) keeps a host loop with one
-synchronisation per iteration (off the main path).
+The reference-shaped branch (fast_params=None, RefLoop) stays on the
+device too, as the JAX package's second lax.while_loop does: an iteration
+is the search (hashmap.get_correspondences), build_normal_equations, the
+step kernel's reference mode (icp_kernel.icp_ref_step: the solve, the pose
+update and the exit test) and the source update by the step's increment,
+queued in blocks of REF_BLOCK_ITERATIONS with one status read a block. A
+stopped loop's step writes the identity as its increment, so the searches
+left in a block change nothing.
 
 Across the ranks of a mesh (parallel/sharding.py) each rank runs the GN
 kernel on its contiguous slice of the frozen rows; the (18,) sums are
 all-gathered as an (n, 18) buffer and added in rank order on the device,
 the same on every rank, so every rank takes the same steps and reads the
-same status. The mesh path is not captured.
+same status. Nothing of that reads the host, so a captured step records
+the gather with the rest (over NCCL).
 """
 
 from __future__ import annotations
@@ -49,7 +56,6 @@ from sage_icp_tpu_torch.ops.constants import device_scalar
 from sage_icp_tpu_torch.ops.scan import trunc_div
 
 MAX_ITERATIONS = 500
-ESTIMATION_THRESHOLD = np.float32(1e-4)
 
 # GN iterations queued per status read. Bench frames take 4.4 (city) and
 # 4.9 (kitti) iterations on average, 3-8 in steady driving, so most frames
@@ -58,6 +64,14 @@ ESTIMATION_THRESHOLD = np.float32(1e-4)
 # BLOCK_ITERATIONS GN launches and as many step launches, so the blocks a
 # run took are its icp_step launches (cuda_lib.launches) over this.
 BLOCK_ITERATIONS = 8
+# The reference-shaped loop's iterations per status read (RefLoop.block):
+# each is a whole search (3.74-3.76 device ms at the kitti preset on an
+# H100 80GB HBM3 at 700 W), and those left in a block after convergence
+# run for nothing, while a status read costs a host round trip (tens of
+# microseconds). chip_smoke.py phase 15 times the captured kitti drive at
+# 1, 2, 4 and 8; 1 took the least there, 1.2 ms/frame less than 2
+# (PERF.md).
+REF_BLOCK_ITERATIONS = 1
 
 
 def build_normal_equations(src, tgt, weight_mask, kernel):
@@ -83,46 +97,11 @@ def build_normal_equations(src, tgt, weight_mask, kernel):
     return JTJ, JTr
 
 
-def solve_increment(JTJ, JTr) -> torch.Tensor:
-    """Solve (JTJ + 1e-8 I) x = -JTr by a 6x6 Cholesky unrolled over
-    float32 scalars on the host (the reference-shaped branch's loop; the
-    frozen-rows loop solves on the device, icp_kernel.icp_step). A
-    non-finite solution becomes 0 (the loop then stops) and |x| is
-    clamped to 10: a legitimate step is far smaller, and float32 se3_exp
-    of a huge twist is not orthonormal. Returns x (6,) f32 on the host."""
-    f32 = np.float32
-    A = JTJ.detach().cpu().numpy().astype(f32) + f32(1e-8) * np.eye(6, dtype=f32)
-    b = -JTr.detach().cpu().numpy().astype(f32)
-    L = [[f32(0)] * 6 for _ in range(6)]
-    with np.errstate(all="ignore"):
-        for i in range(6):
-            for j in range(i + 1):
-                s = A[i, j] - sum((L[i][k] * L[j][k] for k in range(j)), f32(0))
-                L[i][j] = np.sqrt(max(s, f32(1e-30))) if i == j else s / L[j][j]
-        y = []
-        for i in range(6):
-            y.append((b[i] - sum((L[i][k] * y[k] for k in range(i)), f32(0))) / L[i][i])
-        x = [f32(0)] * 6
-        for i in reversed(range(6)):
-            x[i] = (y[i] - sum((L[k][i] * x[k] for k in range(i + 1, 6)), f32(0))) / L[i][i]
-        x = np.array(x, dtype=f32)
-        if not np.all(np.isfinite(x)):
-            x = np.zeros(6, dtype=f32)
-        n = np.sqrt(np.sum(x * x, dtype=f32))
-        if n > 10.0:
-            x = x * (f32(10.0) / max(n, f32(1e-30)))
-    return torch.from_numpy(x)
-
-
 class IcpResult(NamedTuple):
     pose: torch.Tensor  # (4, 4) on the frame's device
     iterations: torch.Tensor  # 0-dim int32 on the frame's device
     num_correspondences: torch.Tensor  # 0-dim int32, at the last iteration
     dropped_queries: torch.Tensor  # 0-dim int32: valid sources without a row seat
-
-
-def _norm(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.sum(x * x))
 
 
 class FrozenRows(NamedTuple):
@@ -239,18 +218,7 @@ class IcpLoop:
             dst.copy_(src)
 
     def status(self) -> int:
-        """The loop's status: the one read from the device, per block. The
-        copy and the event that waits for it are on the current stream of
-        the status's device (the stream the loop's launches went to)."""
-        s = self.loop_i[ik.I_STATUS]
-        if s.device.type == "cpu":
-            return int(s)
-        host = _pinned_status()
-        host.copy_(s, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(s.device))
-        done.synchronize()
-        return int(host)
+        return read_status(self.loop_i)
 
     def result(self) -> IcpResult:
         f = self.loop_f
@@ -266,6 +234,76 @@ class IcpLoop:
                 self.reanchor()
             self.block()
         return self.result()
+
+
+class RefLoop:
+    """The reference-shaped ICP loop of one frame (fast_params=None), in
+    IcpLoop's pieces: the constructor (the state at the initial guess, the
+    source placed there), block (REF_BLOCK_ITERATIONS x (search, normal
+    equations, icp_ref_step launch, source update)), status (the one
+    read a block) and result. The source and the state keep their
+    storage from the constructor on, so a CUDA graph captured over
+    block() replays against them."""
+
+    def __init__(self, map_state: hm.MapState, frame, valid, initial_guess, voxel_size,
+                 max_correspondence_distance, kernel, sem_th, max_iterations: int, probe_depth: int):
+        dev = frame.device
+        self.map_state, self.valid = map_state, valid
+        self.voxel_size, self.sem_th, self.probe_depth = voxel_size, sem_th, probe_depth
+        self.max_iterations = int(max_iterations)
+        self.max_corr = device_scalar(max_correspondence_distance, torch.float32, dev)
+        self.kernel = device_scalar(kernel, torch.float32, dev)
+        guess = initial_guess.to(device=dev, dtype=torch.float32)
+        self.source = geo.transform_points(guess, frame)
+        eye = torch.eye(4, dtype=torch.float32, device=dev)
+        self.loop_f = torch.cat([guess.reshape(-1), eye.reshape(-1),
+                                 torch.zeros((ik.LOOP_F - 32,), device=dev)])
+        self.loop_i = torch.zeros((ik.LOOP_I,), dtype=torch.int32, device=dev)
+        if self.max_iterations <= 0:
+            self.loop_i[ik.I_STATUS].fill_(ik.DONE)
+
+    def block(self) -> None:
+        """REF_BLOCK_ITERATIONS iterations of the JAX loop body; once the
+        status is not RUNNING, each step writes the identity as its
+        increment and the source stays as it is."""
+        f = self.loop_f
+        for _ in range(REF_BLOCK_ITERATIONS):
+            tgt, accept = hm.get_correspondences(self.map_state, self.source, self.valid, self.voxel_size,
+                                                 self.max_corr, self.sem_th, self.probe_depth)
+            JTJ, JTr = build_normal_equations(self.source, tgt, accept, self.kernel)
+            ik.icp_ref_step(JTJ, JTr, accept.sum(dtype=torch.int32), f, self.loop_i, self.max_iterations)
+            self.source.copy_(geo.transform_points(f[ik.F_EST].view(4, 4), self.source))
+
+    def status(self) -> int:
+        return read_status(self.loop_i)
+
+    def result(self) -> IcpResult:
+        f = self.loop_f
+        return IcpResult(pose=ik.compose(f[ik.F_T].view(4, 4), f[ik.F_ANCHOR].view(4, 4)),
+                         iterations=self.loop_i[ik.I_ITERATIONS], num_correspondences=self.loop_i[ik.I_NCORR],
+                         dropped_queries=torch.zeros((), dtype=torch.int32, device=f.device))
+
+    def run(self) -> IcpResult:
+        """The whole loop, eagerly."""
+        self.block()
+        while self.status() != ik.DONE:
+            self.block()
+        return self.result()
+
+
+def read_status(loop_i: torch.Tensor) -> int:
+    """A loop's status: the one read from the device, per block. The copy
+    and the event that waits for it are on the current stream of the
+    status's device (the stream the loop's launches went to)."""
+    s = loop_i[ik.I_STATUS]
+    if s.device.type == "cpu":
+        return int(s)
+    host = _pinned_status()
+    host.copy_(s, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(s.device))
+    done.synchronize()
+    return int(host)
 
 
 _status_host: list = []
@@ -288,8 +326,8 @@ def register_frame(map_state: hm.MapState, frame, valid, initial_guess, voxel_si
     device (IcpLoop): rows are built at an anchor pose, every iteration is
     one fused GN kernel call and one step kernel call, and the rows are
     rebuilt at the current pose once the accumulated increment drifts
-    0.45 voxel. Without, each iteration runs the reference-shaped search
-    in a host loop.
+    0.45 voxel. Without, each iteration runs the reference-shaped search,
+    on the device too (RefLoop).
 
     mesh (parallel.sharding.Mesh): the frozen rows are split across its
     ranks, each summing its share with the GN kernel (module docstring).
@@ -298,25 +336,5 @@ def register_frame(map_state: hm.MapState, frame, valid, initial_guess, voxel_si
     if fast_params is not None:
         return IcpLoop(map_state, frame, valid, initial_guess, voxel_size, max_correspondence_distance, kernel,
                        sem_th, max_iterations, probe_depth, fast_params, tables, mesh).run()
-    dev = frame.device
-    guess = initial_guess.detach().to("cpu", torch.float32)
-    kernel = float(kernel)
-    max_corr = float(max_correspondence_distance)
-    source = geo.transform_points(guess.to(dev), frame)
-    T_icp = torch.eye(4, dtype=torch.float32)
-    it, ncorr = 0, 0
-    last_norm = np.float32(np.inf)
-    while it < max_iterations and last_norm >= ESTIMATION_THRESHOLD:
-        tgt, accept = hm.get_correspondences(
-            map_state, source, valid, voxel_size, max_corr, sem_th, probe_depth)
-        JTJ, JTr = build_normal_equations(source, tgt, accept, kernel)
-        x = solve_increment(JTJ, JTr)
-        est = geo.se3_exp(x)
-        source = geo.transform_points(est.to(dev), source)
-        T_icp = est @ T_icp
-        ncorr = int(accept.sum())
-        last_norm = _norm(x).numpy()
-        it += 1
-    count = lambda v: torch.full((), v, dtype=torch.int32, device=dev)
-    return IcpResult(pose=(T_icp @ guess).to(dev), iterations=count(it), num_correspondences=count(ncorr),
-                     dropped_queries=count(0))
+    return RefLoop(map_state, frame, valid, initial_guess, voxel_size, max_correspondence_distance, kernel, sem_th,
+                   max_iterations, probe_depth).run()

@@ -61,4 +61,4 @@ def init_distributed(init_method: str | None = None, world_size: int | None = No
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=init_method or "env://", world_size=world_size, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout_s))
-    return Mesh(size=world_size, rank=rank, group=dist.group.WORLD, device=device)
+    return Mesh(size=world_size, rank=rank, group=dist.group.WORLD, device=device, backend=dist.get_backend())

@@ -17,13 +17,16 @@ and shares out the work of the two kernels on the step:
     replicated write-back. Rows are independent, so the result is
     exactly the single-device insert (ops/hashmap.py).
 
-With one rank the step equals the single-device step bit for bit.
+With one rank the step equals the single-device step bit for bit. The
+step is the device-resident DeviceStep (models/pipeline.py), as the JAX
+package's sharded step is a jitted, donated program: over NCCL on the
+card it is captured as CUDA graphs, the collectives inside them; over
+gloo (which copies through the host) and on the CPU it runs eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import torch
 
@@ -36,13 +39,15 @@ POINTS_AXIS = "points"
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This rank's view of the process group: `size` ranks, this one
-    `rank`, on `device`. group None is a world of one without a process
-    group (no collective runs)."""
+    `rank`, on `device`, its collectives over `backend`
+    (dist.get_backend(group)). group None is a world of one without a
+    process group (no collective runs; backend None)."""
 
     size: int
     rank: int
     group: object
     device: torch.device
+    backend: str | None = None
 
     @property
     def shape(self) -> dict:
@@ -52,15 +57,22 @@ class Mesh:
         """This rank's contiguous share [lo, hi) of n_rows rows."""
         return self.rank * n_rows // self.size, (self.rank + 1) * n_rows // self.size
 
+    @property
+    def captures(self) -> bool:
+        """Whether a step on this mesh is captured as CUDA graphs by
+        default: on a card, with NCCL's collectives (or none)."""
+        return self.device.type == "cuda" and self.backend in (None, "nccl")
+
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """(m, ...) on every rank -> (size * m, ...), the ranks' rows in
-        rank order, on every rank."""
+        rank order, on every rank: one collective into one output, which
+        a CUDA graph can hold (over NCCL)."""
         if self.group is None:
             return x
         import torch.distributed as dist
 
         out = torch.empty((self.size * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
-        dist.all_gather(list(out.chunk(self.size)), x.contiguous(), group=self.group)
+        dist.all_gather_into_tensor(out, x.contiguous(), group=self.group)
         return out
 
 
@@ -74,7 +86,7 @@ def make_mesh(device=None) -> Mesh:
         if device is None and torch.cuda.is_available():
             device = torch.device("cuda", torch.cuda.current_device())
         return Mesh(size=dist.get_world_size(), rank=dist.get_rank(), group=dist.group.WORLD,
-                    device=pl.resolve_device(device))
+                    device=pl.resolve_device(device), backend=dist.get_backend())
     return Mesh(size=1, rank=0, group=None, device=pl.resolve_device(device))
 
 
@@ -97,23 +109,30 @@ def pad_config_for_mesh(config: pl.SageConfig, mesh: Mesh) -> pl.SageConfig:
     )
 
 
-def make_sharded_step(config: pl.SageConfig, mesh: Mesh, shard_insert: bool = True):
+def make_sharded_step(config: pl.SageConfig, mesh: Mesh, donate: bool = True, shard_insert: bool = True):
     """step(state, points, valid, timestamps) -> (state, pose, aux,
-    landmark_cells_dropped) (pipeline.odometry_step's) with
-    the GN rows split across the mesh and, with shard_insert, the policy
-    rows too (False keeps the insert replicated on every rank)."""
-    return functools.partial(pl.odometry_step, config=config, mesh=mesh, shard_insert=shard_insert)
+    landmark_cells_dropped) (pipeline.odometry_step's) with the GN rows
+    split across the mesh and, with shard_insert, the policy rows too
+    (False keeps the insert replicated on every rank): a DeviceStep on
+    the mesh's device, captured when the mesh captures (Mesh.captures),
+    the state donated unless donate=False (make_step's rule)."""
+    return pl.DeviceStep(config, mesh.device, graph=mesh.captures, packed=False, mesh=mesh,
+                         shard_insert=shard_insert, donate=donate)
 
 
 class ShardedSageICP(pl.SageICP):
     """SageICP whose step is the sharded step on `mesh` (default:
-    make_mesh()), with the configuration padded for it. It runs eagerly:
-    its collectives are not captured."""
+    make_mesh()), with the configuration padded for it. graph=None
+    captures the step as CUDA graphs on the card over NCCL (or in a world
+    without a group) and runs it eagerly on the CPU or over gloo, whose
+    host copies a graph cannot hold; graph=True there raises. Call
+    release() before destroy_process_group: NCCL's communicator waits
+    for the graphs that hold its kernels."""
 
-    def __init__(self, config: pl.SageConfig | str = "kitti", mesh: Mesh | None = None):
+    def __init__(self, config: pl.SageConfig | str = "kitti", mesh: Mesh | None = None, graph: bool | None = None):
         if isinstance(config, str):
             config = pl.PRESETS[config]
         if mesh is None:
             mesh = make_mesh()
-        super().__init__(pad_config_for_mesh(config, mesh), device=mesh.device, graph=False)
-        self.mesh = mesh
+        super().__init__(pad_config_for_mesh(config, mesh), device=mesh.device,
+                         graph=mesh.captures if graph is None else graph, mesh=mesh)

@@ -11,14 +11,19 @@ Every rank reads the whole scan file (write it with save_scans: (F, N,
 4) float32, rows past a scan's end INVALID_COORD), as every process of
 the JAX package's multi-host run is handed the same host values. --config
 names a JSON object of SageConfig fields applied over --preset. Without
---rank / --world / --init the torchrun environment is read. The rank
-writes to --out:
+--rank / --world / --init the torchrun environment is read. The step is
+ShardedSageICP's default: captured as CUDA graphs over NCCL, eager over
+gloo or on the CPU. The rank writes to --out:
 
   poses_<rank>.npy   (F, 4, 4) trajectory
   map_<rank>.npz     the final map (keys, counts, points, first_pts; grid with dense_grid)
-  rank_<rank>.json   the aux totals, the ICP iterations of each frame,
-                     cuda_lib.launches(), the row counts the GN and policy
-                     wrappers were called with, and ms per frame
+  rank_<rank>.json   which step ran (graph), the aux totals, the ICP
+                     iterations of each frame, cuda_lib.launches() (the
+                     kernels' own counts, graph replays included), the
+                     row counts the GN and policy wrappers were called
+                     with (a Python call each: every launch of an eager
+                     step, but only the first frame's and the captures'
+                     of a captured one), and ms per frame
 """
 
 from __future__ import annotations
@@ -106,6 +111,7 @@ def main(argv=None) -> dict:
         for scan in scans:
             odom.register_frame(scan[scan[:, 0] < 1.0e6])
         launches = cuda_lib.launches()
+        odom.release()  # NCCL's communicator waits for the graphs that hold its kernels
     finally:
         for module, name, fn in originals:
             setattr(module, name, fn)
@@ -118,7 +124,7 @@ def main(argv=None) -> dict:
              **{k: v.cpu().numpy() for k, v in odom.state.map._asdict().items() if v is not None})
     totals = odom.aux_totals()
     report = dict(
-        rank=r, world=mesh.size, backend=args.backend or "nccl", device=str(mesh.device),
+        rank=r, world=mesh.size, backend=mesh.backend, device=str(mesh.device), graph=odom.graph,
         frames=len(scans), config=dataclasses.asdict(odom.config),
         aux_totals={f: float(v) for f, v in zip(totals._fields, totals)},
         overflow_total=int(totals.overflow_total()), icp_iterations=[int(i) for i in odom.icp_iters],
@@ -127,7 +133,7 @@ def main(argv=None) -> dict:
     )
     with open(os.path.join(args.out, f"rank_{r}.json"), "w") as f:
         json.dump(report, f)
-    print(f"rank {r} of {mesh.size} ({report['backend']}, {mesh.device}): {len(scans)} frames, "
+    print(f"rank {r} of {mesh.size} ({report['backend']}, {mesh.device}, graph={odom.graph}): {len(scans)} frames, "
           f"{report['ms_per_frame']:.3f} ms/frame after the first, ICP iterations {sum(report['icp_iterations'])}, "
           f"drops {report['overflow_total']}, launches {launches}, kernel rows {report['kernel_rows']}", flush=True)
     return report

@@ -25,9 +25,12 @@ scan within 0.25 m, deskew on below 0.7x off and 0.10 m, as in
 tests/test_robustness.py; chunked against single frames within 1e-5
 (tests/test_pipeline.py); a resumed run within 1e-5 m of the
 uninterrupted one, its map equal slot for slot; the sharded step at
-world size 1 over NCCL equal to SageICP bit for bit, two ranks sharing
-the card over gloo equal to each other bit for bit and within 5e-4 of
-SageICP (tests/test_parallel.py's bound).
+world size 1 over NCCL, captured and eager, equal to SageICP bit for bit,
+two ranks sharing the card over gloo equal to each other bit for bit and
+within 5e-4 of SageICP (tests/test_parallel.py's bound), two NCCL ranks
+on two cards, captured, equal to each other bit for bit and within 5e-3 m
+of SageICP; the reference step kernel bit for bit, and the reference
+loop's captured step equal to its eager one bit for bit.
 
 The seeded input builders here are shared with tests/test_torch_kernels.py
 and tests/test_torch_dynfilter.py.
@@ -393,6 +396,36 @@ def test_icp_step_kernel_matches_plain(card):
 
 
 @pytest.mark.cuda
+def test_icp_ref_step_kernel_matches_plain(card):
+    """The reference step kernel against its plain version bit for bit,
+    from the same loop state, on the normal equations of the reference
+    search on the card (the GN fixture's map and frame): a solve, a
+    non-finite solve, a clamped one, a stop at max_iterations and a
+    launch on a stopped loop (est the identity)."""
+    from sage_icp_tpu_torch.ops import icp_kernel as ik
+
+    world, frame = gn_fixture()
+    n = len(world)
+    m, _ = thm.insert(thm.create(8192, 8, card), t(world).to(card), torch.ones(n, dtype=torch.bool, device=card),
+                      VOXEL, 8, torch.zeros(260, dtype=torch.bool, device=card))
+    loop = treg.RefLoop(m, t(frame).to(card), torch.ones(len(frame), dtype=torch.bool, device=card),
+                        torch.eye(4, device=card), VOXEL, MAX_CORR, KTH, SEM_TH, 500, 16)
+    tgt, accept = thm.get_correspondences(m, loop.source, loop.valid, VOXEL, loop.max_corr, SEM_TH, 16)
+    JTJ, JTr = treg.build_normal_equations(loop.source, tgt, accept, loop.kernel)
+    ncorr = accept.sum(dtype=torch.int32)
+    cases = [(JTJ, JTr), (JTJ * float("nan"), JTr), (JTJ, JTr * 1e6)]
+    for k, (A, b) in enumerate(cases):
+        for max_it, status in ((500, 0), (1, 0), (500, 1)):
+            f = loop.loop_f.clone()
+            f[ik.F_T] = tgeo.se3_exp(torch.tensor([0.05, -0.02, 0.01, 0.004, -0.003, 0.006])).reshape(-1).to(card)
+            i = torch.tensor([k, 0, status, 0], dtype=torch.int32, device=card)
+            fp, ip = f.clone(), i.clone()
+            ik.icp_ref_step(A.contiguous(), b.contiguous(), ncorr, f, i, max_it)
+            ik.icp_ref_step_plain(A, b, ncorr, fp, ip, max_it)
+            assert torch.equal(f, fp) and torch.equal(i, ip), (k, max_it, status)
+
+
+@pytest.mark.cuda
 def test_graph_step_equals_eager_on_card(card):
     """SageICP with the captured step and with the eager one on the
     golden fixture's scans: poses, per-frame iterations, aux totals and
@@ -409,6 +442,39 @@ def test_graph_step_equals_eager_on_card(card):
         odom.register_chunk(scans[3:])
         runs.append(odom)
     on, off = runs
+    np.testing.assert_array_equal(on.trajectory(), off.trajectory())
+    assert on.icp_iters == off.icp_iters
+    for a, b in zip(on.aux_totals(), off.aux_totals()):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(on.state.map, off.state.map):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_reference_graph_step_equals_eager_on_card(card):
+    """The same with use_fast_correspondences=False (the reference-shaped
+    loop, registration.RefLoop): graph = eager bit for bit, and the
+    reference step kernel launched in whole blocks, GN and the
+    frozen-rows step not at all."""
+    pts, labs = synthetic.build_world(seed=1, length=80.0)
+    gt = synthetic.make_trajectory(8, step=1.0)
+    rng = np.random.default_rng(3)
+    scans = [synthetic.render_scan(pts, labs, gt[i], rng, n_target=14000) for i in range(8)]
+    cfg = tpl.SageConfig(**dict(GOLDEN_CONFIG, use_fast_correspondences=False))
+    runs = []
+    for graph in (True, False):
+        odom = tpl.SageICP(cfg, graph=graph)
+        cuda_lib.reset_launches()
+        for s in scans[:3]:
+            odom.register_frame(s)
+        odom.register_chunk(scans[3:])
+        launches = cuda_lib.launches()
+        steps = launches["icp_ref_step"]
+        assert steps % treg.REF_BLOCK_ITERATIONS == 0 and sum(odom.icp_iters) <= steps
+        assert launches["fused_gn_iteration"] == launches["icp_step"] == 0 and launches["apply_policy"] == 8
+        runs.append(odom)
+    on, off = runs
+    assert on._step._graphs is not None and "reanchor" not in on._step._graphs
     np.testing.assert_array_equal(on.trajectory(), off.trajectory())
     assert on.icp_iters == off.icp_iters
     for a, b in zip(on.aux_totals(), off.aux_totals()):
@@ -877,6 +943,10 @@ def tiny_scans():
 
 @pytest.mark.cuda
 def test_nccl_world_of_one_equals_sage_icp_on_card(card, tmp_path):
+    """ShardedSageICP() over NCCL at world size 1: captured by default
+    (its collectives in the graphs), and eager with graph=False, each
+    equal to the captured SageICP bit for bit (trajectory, iterations,
+    totals, map); the kernels' launches counted on the card."""
     import torch.distributed as dist
 
     from sage_icp_tpu_torch.parallel.distributed import init_distributed
@@ -885,22 +955,31 @@ def test_nccl_world_of_one_equals_sage_icp_on_card(card, tmp_path):
     cfg = tpl.SageConfig(**TINY_CONFIG)
     single = tpl.SageICP(cfg)
     mesh = init_distributed(f"file://{tmp_path / 'rendezvous'}", 1, 0, device="cuda:0", timeout_s=120)
+    sharded = ShardedSageICP(cfg, mesh)
+    eager = ShardedSageICP(cfg, mesh, graph=False)
     try:
-        assert dist.get_backend() == "nccl"
-        sharded = ShardedSageICP(cfg, mesh)
+        assert dist.get_backend() == "nccl" and mesh.backend == "nccl" and mesh.captures
+        assert sharded.graph and not eager.graph
         cuda_lib.reset_launches()
         for s in tiny_scans():
             single.register_frame(s)
             sharded.register_frame(s)
+            eager.register_frame(s)
+        assert sharded._step._graphs is not None
     finally:
+        sharded.release()  # NCCL waits for the graphs that hold its kernels
         dist.destroy_process_group()
-    np.testing.assert_array_equal(sharded.trajectory(), single.trajectory())
-    for a, b in zip(sharded.state.map, single.state.map):
-        assert (a is None and b is None) or torch.equal(a, b)
+    for odom in (sharded, eager):
+        np.testing.assert_array_equal(odom.trajectory(), single.trajectory())
+        assert odom.icp_iters == single.icp_iters
+        for a, b in zip(odom.aux_totals(), single.aux_totals()):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(odom.state.map, single.state.map):
+            assert (a is None and b is None) or torch.equal(a, b)
     launches = cuda_lib.launches()
     slots = launches["icp_step"]
-    assert slots % treg.BLOCK_ITERATIONS == 0 and sum(single.icp_iters) + sum(sharded.icp_iters) <= slots
-    assert launches["fused_gn_iteration"] == slots and launches["apply_policy"] == 6
+    assert slots % treg.BLOCK_ITERATIONS == 0 and 3 * sum(single.icp_iters) <= slots
+    assert launches["fused_gn_iteration"] == slots and launches["apply_policy"] == 9
 
 
 @pytest.mark.cuda
@@ -933,44 +1012,85 @@ def test_two_ranks_sharing_the_card(card, tmp_path):
     ran GN on 320 of the 640 rows in every slot of every block of ICP
     iterations and the policy on 1,024 of the 2,048 rows every frame, on
     the card."""
-    import json
-    import subprocess
-    import sys
-
-    from sage_icp_tpu_torch.parallel.worker import save_scans
-
-    root = pathlib.Path(__file__).resolve().parents[1]
     scans = tiny_scans()
-    save_scans(str(tmp_path / "scans.npy"), scans)
-    (tmp_path / "config.json").write_text(json.dumps(TINY_CONFIG))
-    cmds = [[sys.executable, "-m", "sage_icp_tpu_torch.parallel.worker", "--rank", str(r), "--world", "2",
-             "--init", f"file://{tmp_path / 'rendezvous'}", "--backend", "gloo", "--device", "cuda:0",
-             "--preset", "kitti", "--config", str(tmp_path / "config.json"), "--scans", str(tmp_path / "scans.npy"),
-             "--out", str(tmp_path)] for r in range(2)]
-    procs = [subprocess.Popen(c, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
-    try:
-        logs = [p.communicate(timeout=300)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log[-4000:]
+    poses, maps, reports = two_worker_ranks(tmp_path, scans, "gloo", ("cuda:0", "cuda:0"))
     single = tpl.SageICP(tpl.SageConfig(**TINY_CONFIG))
     for s in scans:
         single.register_frame(s)
-    poses = [np.load(tmp_path / f"poses_{r}.npy") for r in range(2)]
-    maps = [dict(np.load(tmp_path / f"map_{r}.npz")) for r in range(2)]
     np.testing.assert_array_equal(poses[0], poses[1])
     for k in maps[0]:
         np.testing.assert_array_equal(maps[0][k], maps[1][k])
     np.testing.assert_allclose(poses[0], single.trajectory(), atol=5e-4)
     n = len(scans)
-    for r in range(2):
-        rep = json.loads((tmp_path / f"rank_{r}.json").read_text())
+    for rep in reports:
+        assert rep["graph"] is False and rep["backend"] == "gloo"
         slots = rep["launches"]["icp_step"]
         assert slots % treg.BLOCK_ITERATIONS == 0 and slots >= n * treg.BLOCK_ITERATIONS
         assert rep["aux_totals"]["nonfinite_pose"] == 0 and sum(rep["icp_iterations"]) <= slots
         assert rep["kernel_rows"] == {"fused_gn_iteration": {"320": slots}, "apply_policy": {"1024": n}}
         assert rep["launches"]["fused_gn_iteration"] == slots and rep["launches"]["apply_policy"] == n
+
+
+def two_worker_ranks(tmp_path, scans, backend: str, devices):
+    """Two parallel.worker processes over `backend`, rank r on devices[r],
+    on the tiny config; both must exit 0 within 180 s (ranks out of step
+    wait on each other: they are killed then, not left hanging). Returns
+    their trajectories, final maps and reports."""
+    import json
+    import subprocess
+    import sys
+    import time
+
+    from sage_icp_tpu_torch.parallel.worker import save_scans
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    save_scans(str(tmp_path / "scans.npy"), scans)
+    (tmp_path / "config.json").write_text(json.dumps(TINY_CONFIG))
+    cmds = [[sys.executable, "-m", "sage_icp_tpu_torch.parallel.worker", "--rank", str(r), "--world", "2",
+             "--init", f"file://{tmp_path / 'rendezvous'}", "--backend", backend, "--device", devices[r],
+             "--preset", "kitti", "--config", str(tmp_path / "config.json"), "--scans", str(tmp_path / "scans.npy"),
+             "--out", str(tmp_path), "--timeout", "120"] for r in range(2)]
+    procs = [subprocess.Popen(c, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    deadline, logs = time.monotonic() + 180, []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            logs.append(p.communicate()[0] + "\n(killed after 180 s)")
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+    return ([np.load(tmp_path / f"poses_{r}.npy") for r in range(2)],
+            [dict(np.load(tmp_path / f"map_{r}.npz")) for r in range(2)],
+            [json.loads((tmp_path / f"rank_{r}.json").read_text()) for r in range(2)])
+
+
+@pytest.mark.cuda
+def test_two_nccl_ranks_on_two_cards_captured(card, tmp_path):
+    """Two parallel.worker processes over NCCL, one card each, their steps
+    captured (the GN-sum and insert gathers inside the graphs), on the
+    tiny config: equal to each other bit for bit, maps slot for slot,
+    within 5e-3 m of SageICP on one card (chip_smoke.py phase 10's bound:
+    only the order in which the two halves' GN sums are added differs);
+    the kernels' launches counted on each card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: NCCL refuses two ranks on one card")
+    scans = tiny_scans()
+    poses, maps, reports = two_worker_ranks(tmp_path, scans, "nccl", ("cuda:0", "cuda:1"))
+    single = tpl.SageICP(tpl.SageConfig(**TINY_CONFIG))
+    for s in scans:
+        single.register_frame(s)
+    np.testing.assert_array_equal(poses[0], poses[1])
+    for k in maps[0]:
+        np.testing.assert_array_equal(maps[0][k], maps[1][k])
+    assert np.isfinite(poses[0]).all()
+    np.testing.assert_allclose(poses[0][:, :3, 3], single.trajectory()[:, :3, 3], atol=5e-3)
+    n = len(scans)
+    for rep in reports:
+        assert rep["graph"] is True and rep["backend"] == "nccl"
+        slots = rep["launches"]["icp_step"]
+        assert slots % treg.BLOCK_ITERATIONS == 0 and slots >= n * treg.BLOCK_ITERATIONS
+        assert sum(rep["icp_iterations"]) <= slots and rep["aux_totals"]["nonfinite_pose"] == 0
+        assert rep["launches"]["fused_gn_iteration"] == slots and rep["launches"]["apply_policy"] == n
+        assert set(rep["kernel_rows"]["fused_gn_iteration"]) == {"320"}
+        assert set(rep["kernel_rows"]["apply_policy"]) == {"1024"}

@@ -263,7 +263,8 @@ def test_chunk_step_equals_chunk_step_and_jax(packed):
         step(tpl.init_state(cfg, "cpu"), buf[:3])
     jcfg = jpl.SageConfig(**TINY)
     jstep = jpl.make_chunk_step(jcfg, 2)
-    state = ref_state = tpl.init_state(cfg, "cpu")
+    # two states: the step takes its state as donated and updates it in place
+    state, ref_state = tpl.init_state(cfg, "cpu"), tpl.init_state(cfg, "cpu")
     jstate = jpl.init_state(jcfg)
     for w in (0, 2):
         state, poses, iters, agg, lmk = step(state, buf[w:w + 2])
@@ -300,18 +301,15 @@ class HostTraffic(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def test_captured_pieces_read_nothing_on_the_host(packed, monkeypatch):
-    """The four pieces a captured step records (prepare with its first
-    block, block, reanchor + block, finish), run on the CPU after a first
-    frame: with Tensor.item, .cpu, .numpy, .tolist, __bool__, __int__,
-    __float__ and __index__ patched to raise, and no tensor made from a
-    host value or read on the host (HostTraffic). The deskew and the
-    dynamic filter are on, so their pieces run too."""
-    cfg, scans, _ = packed
-    cfg = dataclasses.replace(cfg, deskew=True, dynamic_vehicle_filter=True, label_max_range=10.0)
+def captured_pieces_traffic(cfg, scans, monkeypatch, pieces) -> list:
+    """What the pieces of a captured step (`pieces` names DeviceStep's and
+    its loop's methods, in order) read from the host on a third frame,
+    run on the CPU after two: with Tensor.item, .cpu, .numpy, .tolist,
+    __bool__, __int__, __float__ and __index__ patched to raise, and
+    HostTraffic's list."""
     odom = tpl.SageICP(cfg, device="cpu")
     buf = torch.from_numpy(odom.pad_chunk(scans[:3]))
-    step = odom._device_step()
+    step = odom._step
     state = odom.state
     for f in buf[:2]:  # the first frame builds the constants; the second has a pose to deskew from
         state, *_ = step(state, f)
@@ -325,13 +323,69 @@ def test_captured_pieces_read_nothing_on_the_host(packed, monkeypatch):
     for name in ("item", "cpu", "numpy", "tolist", "__bool__", "__int__", "__float__", "__index__"):
         monkeypatch.setattr(torch.Tensor, name, refuse(name))
     with HostTraffic() as traffic:
-        step._prepare()
-        step._loop.block()
-        step._loop.reanchor()
-        step._loop.block()
-        step._finish()
+        for piece in pieces:
+            getattr(step if piece in ("_prepare", "_finish") else step._loop, piece)()
     monkeypatch.undo()
-    assert traffic.seen == []
+    return traffic.seen
+
+
+def test_captured_pieces_read_nothing_on_the_host(packed, monkeypatch):
+    """The four pieces a captured step records (prepare with its first
+    block, block, reanchor + block, finish), run on the CPU after a first
+    frame: with Tensor.item, .cpu, .numpy, .tolist, __bool__, __int__,
+    __float__ and __index__ patched to raise, and no tensor made from a
+    host value or read on the host (HostTraffic). The deskew and the
+    dynamic filter are on, so their pieces run too."""
+    cfg, scans, _ = packed
+    cfg = dataclasses.replace(cfg, deskew=True, dynamic_vehicle_filter=True, label_max_range=10.0)
+    pieces = ("_prepare", "block", "reanchor", "block", "_finish")
+    assert captured_pieces_traffic(cfg, scans, monkeypatch, pieces) == []
+
+
+def test_captured_reference_pieces_read_nothing_on_the_host(packed, monkeypatch):
+    """The same with fast correspondences off: prepare (with its first
+    block of the reference loop: searches, normal equations, reference
+    steps, source updates), block and finish."""
+    cfg, scans, _ = packed
+    cfg = dataclasses.replace(cfg, deskew=True, dynamic_vehicle_filter=True, label_max_range=10.0,
+                              use_fast_correspondences=False)
+    assert captured_pieces_traffic(cfg, scans, monkeypatch, ("_prepare", "block", "_finish")) == []
+    assert tpl.SageICP(cfg, device="cpu")._step.fast_params is None
+
+
+@pytest.mark.parametrize("factory", ["make_step", "make_step_packed", "make_sharded_step"])
+def test_donate_updates_the_state_in_place_or_leaves_it(packed, factory):
+    """Two frames through each factory with donate=True and donate=False
+    (make_sharded_step on a world of one without a group): the same poses
+    and final state bit for bit; donated, the caller's first state is the
+    step's state, updated in place; not donated, it is bit for bit as it
+    was and the step's state is its own."""
+    from sage_icp_tpu_torch.parallel import sharding as tsh
+
+    cfg, _, buf = packed
+    runs = {}
+    for donate in (True, False):
+        if factory == "make_sharded_step":
+            step = tsh.make_sharded_step(cfg, tsh.make_mesh("cpu"), donate=donate)
+        else:
+            step = getattr(tpl, factory)(cfg, graph=False, device="cpu", donate=donate)
+        given = tpl.init_state(cfg, "cpu")
+        before = [t.clone() for t in (*given.map[:4], *tpl._small_fields(given))]
+        state, poses = given, []
+        for f in buf[:2]:
+            state, pose, _, _ = step(state, *((f,) if factory == "make_step_packed" else tpl._split_packed(f)))
+            poses.append(pose.clone())
+        fields = [*given.map[:4], *tpl._small_fields(given)]
+        mine = [*state.map[:4], *tpl._small_fields(state)]
+        if donate:
+            assert all(a is b for a, b in zip(fields, mine))
+            assert int((given.map.counts > 0).sum()) > 0 and int(given.num_poses) == 2
+        else:
+            assert all(torch.equal(a, b) for a, b in zip(fields, before))
+            assert all(a.untyped_storage().data_ptr() != b.untyped_storage().data_ptr() for a, b in zip(fields, mine))
+        runs[donate] = (poses, state)
+    assert all(torch.equal(a, b) for a, b in zip(runs[True][0], runs[False][0]))
+    assert_states_equal(runs[True][1], runs[False][1])
 
 
 def test_a_launch_on_another_current_device_raises(monkeypatch):

@@ -185,6 +185,48 @@ def test_sharded_step_at_one_rank_equals_sage_icp(tiny_scans, port_single):
         np.testing.assert_array_equal(pose.numpy(), port_single.trajectory()[i])
 
 
+def test_make_sharded_step_at_a_world_of_one_is_make_step(tiny_scans):
+    """make_sharded_step on a world of one without a group is a DeviceStep
+    (eager on the CPU), equal to make_step's bit for bit: poses, aux and
+    the final state."""
+    cfg = port_tiny()
+    sharded = tsh.make_sharded_step(cfg, tsh.make_mesh("cpu"))
+    assert isinstance(sharded, tpl.DeviceStep) and not sharded.graph and sharded.mesh.group is None
+    single = tpl.make_step(cfg, graph=False, device="cpu")
+    buf = tpl.SageICP(cfg, device="cpu").pad_chunk(tiny_scans)
+    a, b = tpl.init_state(cfg, "cpu"), tpl.init_state(cfg, "cpu")
+    for frame in buf:
+        inputs = tpl._split_packed(torch.from_numpy(frame))
+        a, pa, xa, la = sharded(a, *inputs)
+        b, pb, xb, lb = single(b, *inputs)
+        assert torch.equal(pa, pb) and torch.equal(la, lb) and all(torch.equal(x, y) for x, y in zip(xa, xb))
+    for x, y in zip([*a.map, *tpl._small_fields(a)], [*b.map, *tpl._small_fields(b)]):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+def test_graph_steps_refuse_a_gloo_mesh(tiny_scans):
+    """gloo copies through the host, which a CUDA graph cannot hold:
+    DeviceStep(graph=True) and ShardedSageICP(graph=True) on a gloo mesh
+    raise, naming the backend; graph=None captures only on a card over
+    NCCL or without a group (Mesh.captures), so ShardedSageICP() on the
+    CPU runs its step eagerly."""
+    cpu, card = torch.device("cpu"), torch.device("cuda", 0)
+    gloo = tsh.Mesh(size=1, rank=0, group=None, device=cpu, backend="gloo")
+    with pytest.raises(ValueError, match="gloo backend"):
+        tpl.DeviceStep(port_tiny(), "cpu", graph=True, mesh=gloo)
+    with pytest.raises(ValueError, match="gloo backend"):
+        tsh.ShardedSageICP(port_tiny(), gloo, graph=True)
+    assert [tsh.Mesh(1, 0, None, d, b).captures for d, b in ((card, "nccl"), (card, None), (card, "gloo"),
+                                                              (cpu, "gloo"), (cpu, None))] == [
+        True, True, False, False, False]
+    odom = tsh.ShardedSageICP(port_tiny(), gloo)
+    assert odom.graph is False and odom._step.graph is False
+    odom.register_frame(tiny_scans[0])
+    odom.release()  # no graphs to drop here; the step goes on
+    odom.register_frame(tiny_scans[1])
+    assert odom.icp_iters[0] == 1 and len(odom.trajectory()) == 2
+
+
 @pytest.mark.parametrize("shard_insert", [True, False])
 def test_sharded_step_routes_rows_to_the_kernels(tiny_scans, monkeypatch, shard_insert):
     """Rank 1 of a two-rank mesh (a test double without a group, whose
