@@ -1,6 +1,7 @@
 """End-to-end check of sage_icp_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py [--kernels-only] [--profile]
+    python3 chip_smoke.py --multi-rank [--profile]   (phase 10 alone; 10c wants 4 cards)
     python3 chip_smoke.py --root DIR
     python3 bench_torch.py        (the bench alone; phase 13 runs it in process)
 
@@ -23,9 +24,9 @@ Phases, each fatal on failure:
      for bit; the bitonic sort bit for bit at N = 2^16 and 2^18 (two
      uint32 keys, an iota key, a float32 payload) against the stable sort
      and the network run stage by stage, and at 2^18 on tied keys (no iota
-     key) against the network, with its launches per call; the GN and
-     policy kernels on the two row halves of the kitti shapes that phase
-     10's ranks take, against the call on all rows. Kernel, plain
+     key) against the network, with its launches per call; the GN,
+     policy and radius-count kernels on the two row halves of the kitti
+     shapes that phase 10's ranks take, against the call on all rows. Kernel, plain
      and library times are device times (time_ms: calls queued back to
      back behind a spacer kernel, CUDA events, the median of 5 batches of
      20);
@@ -73,7 +74,8 @@ Phases, each fatal on failure:
      against the CPU within 1e-5 m, and its time at 135,168 points; a
      checkpoint resume after 20 frames equal to the uninterrupted run
      (trajectory within 1e-5 m, the map slot for slot);
- 10. multi-rank (parallel/): (a) NCCL at world size 1 in process,
+ 10. multi-rank (parallel/; run after phase 15, whose trajectory 10c
+     compares with): (a) NCCL at world size 1 in process,
      init_distributed through a file:// rendezvous under build/, then
      ShardedSageICP() (the kitti preset; captured, its collectives in the
      graphs) and ShardedSageICP(graph=False), alternated (captured, eager,
@@ -88,15 +90,26 @@ Phases, each fatal on failure:
      the same 40 scans: the two trajectories equal bit for bit and the
      final maps slot for slot, each within 5e-3 m of phase 6's trajectory
      (test_sharded_maneuver_equivalence's bound), ATE < 0.05 m, no drop,
-     and per rank GN in every slot of every ICP block on 9,216 of the 18,432 rows,
-     the policy once a frame on 16,512 of the 33,024 rows, the radius count
-     once a frame (replicated). Each rank's ms/frame is printed: two ranks
+     and per rank its share of the per-point work: GN in every slot of
+     every ICP block on 9,216 of the 18,432 rows, the policy once a frame
+     on 16,512 of the 33,024 rows, the radius count once a frame on 2,048
+     of the 4,096 query rows. Each rank's ms/frame is printed: two ranks
      share one card, so it is not a scaling figure. (c) With two cards or
-     more, the same with two NCCL ranks on cuda:0 and cuda:1, each step
-     captured; with one card it prints that it did not run and why. Every
-     rank process is killed after TWO_RANKS_TIMEOUT_S: ranks out of step
-     wait on each other rather than fail. 10a also prints the
-     host time of one GN-sum exchange and of one insert gather over NCCL.
+     more, captured NCCL worker ranks on cuda:0, cuda:1, ...: one card,
+     two and (with four) four on the fast kitti path, and one card and
+     two on the reference path (use_fast_correspondences=False), each
+     with (b)'s checks against the single card (a world of one equal to
+     phase 6's or phase 15's trajectory bit for bit), the rows per rank
+     R / n, U / n, VR / n (GN none on the reference path), then each
+     rank's ms/frame beside one card's on both paths, and the scan head
+     timed on two ranks (head_timing: whole against split and gathered,
+     deskew off and on, bit for bit); with --profile, rank 0's device ms
+     by kernel over the last 5 frames at one card and two, the pooling
+     and the gathers summed. With one card it prints that 10c did not
+     run and why. Every rank process is killed after TWO_RANKS_TIMEOUT_S:
+     ranks out of step wait on each other rather than fail. 10a also
+     prints the host time of one GN-sum exchange and of one insert
+     gather over NCCL.
  11. the dense voxel-grid index: PRESETS["kitti"] and PRESETS["city"] with
      dense_grid on and off, three runs of each, alternated, on phase 6's
      (and phase 4's) scans with that phase's calls: every trajectory
@@ -421,13 +434,14 @@ def check_policy(rng, dev, shape):
 
 
 def check_shards(dev) -> None:
-    """Phase 3, the two row-sharded kernels at kitti shapes split in two
+    """Phase 3, the three row-sharded kernels at kitti shapes split in two
     as phase 10's ranks run them (seeded rows of their own): GN on each
     half's rows (views, the tile map recomputed per half), the two sums
     added in rank order, against the call on all rows within GN_SUM_RTOL
-    of the terms' magnitudes, the used count equal; the policy on each
-    half, concatenated, against the call on all rows bit for bit. Prints
-    each half's kernel time (time_ms)."""
+    of the terms' magnitudes, the used count equal; the policy and the
+    radius count (at the filter's shapes) on each half, concatenated,
+    against the call on all rows bit for bit. Prints each half's kernel
+    time (time_ms)."""
     from sage_icp_tpu_torch.ops import nn_kernels, policy_kernel
 
     rng = np.random.default_rng(2)
@@ -462,10 +476,20 @@ def check_shards(dev) -> None:
     if not all(torch.equal(torch.cat([g0, g1]), w) for g0, g1, w in zip(*got, want)):
         fail("apply_policy on two row halves differs from the call on all rows")
     pol_ms = [time_ms(lambda a=a: policy_kernel.apply_policy(*a, basic=20)) for a in shards]
+
+    rargs = radius_inputs(rng, dev)
+    VR = rargs[0].shape[0]
+    r2 = KITTI_FILTER["r2"]
+    want = nn_kernels.radius_count(*rargs, r2)
+    rshards = [[a[lo:hi].contiguous() for a in rargs] for lo, hi in ((0, VR // 2), (VR // 2, VR))]
+    if not torch.equal(torch.cat([nn_kernels.radius_count(*a, r2) for a in rshards]), want):
+        fail("radius_count on two row halves differs from the call on all rows")
+    rc_ms = [time_ms(lambda a=a: nn_kernels.radius_count(*a, r2)) for a in rshards]
     print(f"row halves at kitti shapes (phase 10's two ranks): fused_gn_iteration on {R // 2} + {R - R // 2} rows "
           f"{gn_ms[0]:.4f} + {gn_ms[1]:.4f} ms, their sums in rank order against all rows max |diff| "
           f"{float(diff.max())} (within tolerance); apply_policy on {U // 2} + {U - U // 2} rows {pol_ms[0]:.4f} + "
-          f"{pol_ms[1]:.4f} ms, equal to all rows bit for bit", flush=True)
+          f"{pol_ms[1]:.4f} ms, equal to all rows bit for bit; radius_count on {VR // 2} + {VR - VR // 2} rows "
+          f"{rc_ms[0]:.4f} + {rc_ms[1]:.4f} ms, equal to all rows bit for bit", flush=True)
 
 
 def print_row(name, r) -> None:
@@ -1187,8 +1211,10 @@ def nccl_world_of_one(scans, traj, dev, profile_scans=None) -> None:
             for scan in scans[:WARMUP]:
                 odom.register_frame(scan)
             host[graph] = host_profile(f"NCCL world of one, graph={graph}", odom, scans[WARMUP:WARMUP + 5])
-        if profile_scans:
-            profile("kitti NCCL world of one (captured)", runs[True][0]["odom"], profile_scans)
+            if graph and profile_scans:  # a step of its own, driven on to the drive's end: the checked runs
+                for scan in scans[WARMUP + 5:]:  # keep their frames
+                    odom.register_frame(scan)
+                profile("kitti NCCL world of one (captured)", odom, profile_scans)
     finally:
         for odom in made:
             odom.release()
@@ -1223,25 +1249,10 @@ def nccl_world_of_one(scans, traj, dev, profile_scans=None) -> None:
           flush=True)
 
 
-def two_ranks(label: str, backend: str, devices, scans, traj, gt) -> None:
-    """Phases 10b and 10c: two parallel.worker processes over `backend`,
-    rank r on devices[r], at the full kitti preset, on the kitti drive's
-    scans; each killed after TWO_RANKS_TIMEOUT_S (ranks out of step wait
-    on each other rather than fail). Their step is ShardedSageICP's
-    default: eager over gloo, captured over NCCL."""
-    from sage_icp_tpu_torch.models.pipeline import PRESETS
-    from sage_icp_tpu_torch.parallel.worker import save_scans
-
-    out = os.path.join(MULTI_RANK_DIR, f"two_ranks_{backend}")
-    os.makedirs(out, exist_ok=True)
-    rendezvous = os.path.join(MULTI_RANK_DIR, f"rendezvous_{backend}")
-    if os.path.exists(rendezvous):
-        os.remove(rendezvous)
-    save_scans(os.path.join(out, "scans.npy"), scans)
-    cmds = [[sys.executable, "-m", "sage_icp_tpu_torch.parallel.worker", "--rank", str(r), "--world", "2",
-             "--init", f"file://{rendezvous}", "--backend", backend, "--device", devices[r],
-             "--preset", "kitti", "--scans", os.path.join(out, "scans.npy"), "--out", out,
-             "--timeout", str(TWO_RANKS_TIMEOUT_S)] for r in range(2)]
+def spawn_ranks(label: str, cmds) -> list:
+    """Start the rank processes together and wait for them, killing every
+    one at TWO_RANKS_TIMEOUT_S (ranks out of step wait on each other
+    rather than fail); fatal unless each exits 0. Returns their logs."""
     procs = [subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
     deadline, logs, late = time.monotonic() + TWO_RANKS_TIMEOUT_S, [], False
     for p in procs:
@@ -1257,63 +1268,272 @@ def two_ranks(label: str, backend: str, devices, scans, traj, gt) -> None:
     for r, (p, log) in enumerate(zip(procs, logs)):
         if p.returncode != 0:
             fail(f"{label}: rank {r} exited {p.returncode}:\n{log[-4000:]}")
+    return logs
+
+
+def worker_ranks(label: str, backend: str, devices, scans, ref_traj, gt, overrides: dict | None = None,
+                 profile: int = 0) -> list:
+    """Phases 10b and 10c: len(devices) parallel.worker processes over
+    `backend`, rank r on devices[r], at the full kitti preset (SageConfig
+    fields `overrides` over it), on the kitti drive's scans (the last
+    `profile` of them under torch.profiler). Their step is ShardedSageICP's
+    default: eager over gloo, captured over NCCL. The ranks' trajectories
+    equal bit for bit and their final maps slot for slot; a world of one
+    equal to `ref_traj` bit for bit, more ranks within 5e-3 m of it
+    (test_sharded_maneuver_equivalence's bound); ATE < 0.05 m, no drop;
+    every rank's kernels launched as the path launches them, and its
+    wrappers called on its share of the rows: GN on R / n (none on the
+    reference path), the policy on U / n, the radius count on VR / n.
+    Returns the ranks' reports."""
+    from sage_icp_tpu_torch.models.pipeline import PRESETS
+    from sage_icp_tpu_torch.ops import dynamic_filter as dyn
+    from sage_icp_tpu_torch.parallel.worker import save_scans
+
+    world = len(devices)
+    tag = f"{backend}_{world}_{'_'.join(sorted(overrides or {})) or 'kitti'}"
+    out = os.path.join(MULTI_RANK_DIR, f"ranks_{tag}")
+    os.makedirs(out, exist_ok=True)
+    rendezvous = os.path.join(MULTI_RANK_DIR, f"rendezvous_{tag}")
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)
+    save_scans(os.path.join(out, "scans.npy"), scans)
+    extra = ["--profile", str(profile)] if profile else []
+    if overrides:
+        with open(os.path.join(out, "config.json"), "w") as f:
+            json.dump(overrides, f)
+        extra += ["--config", os.path.join(out, "config.json")]
+    cmds = [[sys.executable, "-m", "sage_icp_tpu_torch.parallel.worker", "--rank", str(r), "--world", str(world),
+             "--init", f"file://{rendezvous}", "--backend", backend, "--device", devices[r],
+             "--preset", "kitti", "--scans", os.path.join(out, "scans.npy"), "--out", out,
+             "--timeout", str(TWO_RANKS_TIMEOUT_S), *extra] for r in range(world)]
+    spawn_ranks(label, cmds)
     ranks = []
-    for r in range(2):
+    for r in range(world):
         with open(os.path.join(out, f"rank_{r}.json")) as f:
             ranks.append(dict(report=json.load(f), poses=np.load(os.path.join(out, f"poses_{r}.npy")),
                               map=dict(np.load(os.path.join(out, f"map_{r}.npz")))))
-    r0, r1 = ranks
-    if not np.array_equal(r0["poses"], r1["poses"]):
-        fail(f"{label}: the two ranks' trajectories differ: max |diff| {np.abs(r0['poses'] - r1['poses']).max()}")
-    if not all(np.array_equal(r0["map"][k], r1["map"][k]) for k in r0["map"]):
-        fail(f"{label}: the two ranks' final maps differ")
-    gap = float(np.linalg.norm(r0["poses"][:, :3, 3] - traj[:, :3, 3], axis=-1).max())
-    ate = ate_of(r0["poses"], gt)
+    r0 = ranks[0]
+    for r, rank in enumerate(ranks[1:], 1):
+        if not np.array_equal(r0["poses"], rank["poses"]):
+            fail(f"{label}: ranks 0 and {r}'s trajectories differ: max |diff| "
+                 f"{np.abs(r0['poses'] - rank['poses']).max()}")
+        if r0["map"].keys() != rank["map"].keys() or not all(np.array_equal(r0["map"][k], rank["map"][k])
+                                                            for k in r0["map"]):
+            fail(f"{label}: ranks 0 and {r}'s final maps differ")
+    gap = float(np.linalg.norm(r0["poses"][:, :3, 3] - ref_traj[:, :3, 3], axis=-1).max())
+    if world == 1 and not np.array_equal(r0["poses"], ref_traj):
+        fail(f"{label}: a world of one differs from the single card's trajectory by {gap} m")
     if not gap < 5e-3:
-        fail(f"{label}: {gap} m from phase 6's single-device trajectory (bound 5e-3 m)")
+        fail(f"{label}: {gap} m from the single card's trajectory (bound 5e-3 m)")
+    ate = ate_of(r0["poses"], gt)
     if not ate < 0.05:
         fail(f"{label}: ATE {ate} m")
-    cfg = PRESETS["kitti"]
-    gn_rows = (cfg.corr_unique_voxel_rows + cfg.corr_overflow_rows) // 2
-    policy_rows = min(cfg.insert_unique_capacity, cfg.frame_capacity) // 2
+    # the ranks ran the preset padded for the mesh (pad_config_for_mesh)
+    padded = {k: r0["report"]["config"][k] for k in ("scan_capacity", "frame_capacity", "source_capacity",
+                                                      "insert_unique_capacity")}
+    cfg = dataclasses.replace(PRESETS["kitti"], **{**(overrides or {}), **padded})
+    reference = not cfg.use_fast_correspondences
+    share = lambda rows: -(-rows // world)  # noqa: E731 (the padded share; every split here tiles)
+    rows = {"fused_gn_iteration": None if reference else share(cfg.corr_unique_voxel_rows + cfg.corr_overflow_rows),
+            "apply_policy": share(min(cfg.insert_unique_capacity, cfg.frame_capacity)),
+            "radius_count": share(dyn._VEH_ROW_CAP)}
     captured = backend == "nccl"
     n = len(scans)
     for r, rank in enumerate(ranks):
         rep = rank["report"]
-        if rep["graph"] != captured or rep["backend"] != backend:
-            fail(f"{label}: rank {r} ran graph={rep['graph']} over {rep['backend']}")
+        if rep["graph"] != captured or rep["backend"] != backend or rep["world"] != world:
+            fail(f"{label}: rank {r} ran graph={rep['graph']} over {rep['backend']} in a world of {rep['world']}")
         if rep["overflow_total"] != 0:
             fail(f"{label}: rank {r}: silent-drop counters over all frames: {rep['aux_totals']}")
         iters = sum(rep["icp_iterations"])
-        expect_launches(f"{label}, rank {r}", rep["launches"], iters, n, n)
-        slots = rep["launches"]["icp_step"]
+        expect_launches(f"{label}, rank {r}", rep["launches"], iters, n, n, reference=reference)
+        step = rep["launches"]["icp_ref_step" if reference else "icp_step"]
         # the wrappers' Python calls: every launch of the eager step; the
         # first frame's and the captures' of a captured one
-        rows = {k: set(v) for k, v in rep["kernel_rows"].items()} if captured else rep["kernel_rows"]
-        want_rows = ({"fused_gn_iteration": {str(gn_rows)}, "apply_policy": {str(policy_rows)}} if captured else
-                     {"fused_gn_iteration": {str(gn_rows): slots}, "apply_policy": {str(policy_rows): n}})
-        if rows != want_rows:
-            fail(f"{label}: rank {r}: kernel rows {rep['kernel_rows']}, expected {want_rows}")
+        calls = {"fused_gn_iteration": step, "apply_policy": n, "radius_count": n}
+        if captured:
+            want = {k: set() if v is None else {str(v)} for k, v in rows.items()}
+            got = {k: set(v) for k, v in rep["kernel_rows"].items()}
+        else:
+            want = {k: {} if v is None else {str(v): calls[k]} for k, v in rows.items()}
+            got = rep["kernel_rows"]
+        if got != want:
+            fail(f"{label}: rank {r}: kernel rows {rep['kernel_rows']}, expected {want}")
         print(f"{label}, rank {r} on {rep['device']} (graph={rep['graph']}): {rep['ms_per_frame']:.3f} ms/frame "
               f"after the first frame; ICP iterations {iters}, launches {rep['launches']}, kernel rows "
               f"{rep['kernel_rows']}", flush=True)
-    print(f"{label}: trajectories equal bit for bit, final maps equal slot for slot; {gap:.3e} m from phase 6's "
-          f"trajectory at most; ATE {ate:.5f} m; GN on {gn_rows} rows and the policy on {policy_rows} rows per "
-          "rank", flush=True)
+    print(f"{label}: trajectories equal bit for bit, final maps equal slot for slot; {gap:.3e} m from the single "
+          f"card's trajectory at most; ATE {ate:.5f} m; per rank GN on {rows['fused_gn_iteration']} rows, the policy "
+          f"on {rows['apply_policy']}, the radius count on {rows['radius_count']}", flush=True)
+    return [rank["report"] for rank in ranks]
 
 
-def multi_rank_phase(scans, traj, gt, dev, profile_scans=None) -> None:
-    """Phase 10: the kitti drive's scans through the parallel layer."""
+HEAD_REPS = 50
+
+
+def head_timing(rank: int, world: int, init: str) -> None:
+    """Phase 10c's timing of the scan head, one of `world` NCCL ranks
+    (this process rank `rank` on cuda:rank; `python3 chip_smoke.py
+    --head-rank r --head-world n --head-init file://...`), on a seeded
+    135,168-point kitti scan from the third pose on: the head whole on
+    every rank against each rank's share and the gather of the cropped
+    rows, with deskew off and on; each variant bit for bit the whole
+    head, captured as a CUDA graph and timed over HEAD_REPS replays
+    between CUDA events (device time of the step's own capture, the
+    gather included), the median of 5 batches. Rank 0 prints one line
+    `HEAD {json}`."""
+    import torch.distributed as dist
+
+    from sage_icp_tpu_torch.models import pipeline as pl
+    from sage_icp_tpu_torch.ops import geometry as geo
+    from sage_icp_tpu_torch.ops import scan as scan_ops
+    from sage_icp_tpu_torch.parallel.distributed import init_distributed
+
+    mesh = init_distributed(init, world, rank, backend="nccl", device=f"cuda:{rank}", timeout_s=TWO_RANKS_TIMEOUT_S)
+    dev = mesh.device
+    geo.pin_full_fp32()
+    cfg = pl.PRESETS["kitti"]
+    rng = np.random.default_rng(0)
+    cap = cfg.scan_capacity
+    xyz = rng.uniform(-100.0, 100.0, (cap, 3)) * np.array([1.0, 1.0, 0.05])
+    pts = torch.tensor(np.concatenate([xyz, rng.choice([0, 10, 40, 44, 50], (cap, 1))], 1), dtype=torch.float32,
+                       device=dev)
+    valid = torch.tensor(rng.random(cap) < 0.65, device=dev)
+    ts = torch.tensor(rng.random(cap), dtype=torch.float32, device=dev)
+    state = pl.init_state(dataclasses.replace(cfg, map_capacity=1024), dev)
+    state = state._replace(prev_pose=geo.se3_exp(torch.tensor([0.9, 0.1, 0.0, 0.0, 0.0, 0.01], device=dev)),
+                           last_pose=geo.se3_exp(torch.tensor([2.0, 0.2, 0.01, 0.001, 0.002, 0.03], device=dev)),
+                           num_poses=torch.tensor(3, dtype=torch.int32, device=dev))
+    off, on = cfg, dataclasses.replace(cfg, deskew=True)
+
+    def split_crop():  # the split without deskew: scan_head's split path, the crop alone
+        p, v = mesh.local_rows(pts), mesh.local_rows(valid)
+        c, cv = scan_ops.preprocess(p, v, cfg.max_range, cfg.min_range, cfg.label_max_range)
+        rows = mesh.gather_rows(torch.cat([c, cv[:, None].to(c.dtype)], dim=1), cap)
+        return rows[:, :4], rows[:, 4] != 0
+
+    variants = {
+        "whole, deskew off": lambda: pl.scan_head(state, pts, valid, ts, off),
+        "split, deskew off": split_crop,
+        "whole, deskew on": lambda: pl.scan_head(state, pts, valid, ts, on),
+        "split, deskew on": lambda: pl.scan_head(state, pts, valid, ts, on, mesh),
+    }
+    graphs, out = {}, {}
+    try:
+        stream = torch.cuda.Stream(dev)
+        with torch.cuda.device(dev):
+            for name, fn in variants.items():
+                stream.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(stream):
+                    fn()  # eager first: NCCL's communicator, the constants
+                torch.cuda.current_stream(dev).wait_stream(stream)
+                torch.cuda.synchronize(dev)
+                holder = {}
+                graphs[name] = pl._capture_graph(lambda: holder.update(out=fn()), stream)
+                out[name] = holder["out"]
+            ms = {name: replay_ms(graphs[name], dev) for name in variants}
+            same = {d: all(torch.equal(x, y) for x, y in zip(out[f"split, deskew {d}"], out[f"whole, deskew {d}"]))
+                    for d in ("off", "on")}
+        if rank == 0:
+            kept = int(out["whole, deskew on"][1].sum())
+            print("HEAD " + json.dumps(dict(world=world, points=cap, kept=kept, ms=ms, bit_for_bit=same)), flush=True)
+    finally:
+        # NCCL's communicator waits for the graphs that hold its kernels:
+        # no reference to one may outlive this
+        graphs.clear()
+        dist.destroy_process_group()
+
+
+def replay_ms(graph, dev) -> float:
+    """Device ms of one replay of `graph`: HEAD_REPS replays between CUDA
+    events, the median of 5 batches."""
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize(dev)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(HEAD_REPS):
+            graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / HEAD_REPS)
+    return float(np.median(times))
+
+
+def head_phase(cards: int) -> dict:
+    """Phase 10c's scan-head timing on two NCCL ranks (head_timing)."""
+    rendezvous = os.path.join(MULTI_RANK_DIR, "rendezvous_head")
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)
+    cmds = [[sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--head-rank", str(r), "--head-world", "2",
+             "--head-init", f"file://{rendezvous}"] for r in range(2)]
+    logs = spawn_ranks("scan head timing on two NCCL ranks", cmds)
+    line = [ln for ln in logs[0].splitlines() if ln.startswith("HEAD ")]
+    if not line:
+        fail(f"scan head timing: rank 0 printed no result:\n{logs[0][-2000:]}")
+    head = json.loads(line[-1][5:])
+    if not all(head["bit_for_bit"].values()):
+        fail(f"scan head on two ranks: the split head differs from the whole one: {head['bit_for_bit']}")
+    ms = head["ms"]
+    print(f"scan head on two NCCL ranks (kitti scan of {head['points']} points, {head['kept']} kept; device ms a "
+          f"call, captured): deskew off whole {ms['whole, deskew off']:.4f}, split + gather "
+          f"{ms['split, deskew off']:.4f}; deskew on whole {ms['whole, deskew on']:.4f}, split + gather "
+          f"{ms['split, deskew on']:.4f}; the split equal to the whole head bit for bit", flush=True)
+    return head
+
+
+def stage_ms(kernels: dict) -> dict:
+    """Device ms a frame by stage, from a profile's kernel names: the
+    filter's pooling (max_pool3d), PyTorch's gathers (index and gather
+    kernels: the row setup's, the filter's and the insert's) and NCCL's
+    collectives (whose kernels spin while a peer is late)."""
+    nccl = {k: v for k, v in kernels.items() if "nccl" in k.lower()}
+    pick = lambda *keys: sum(v for k, v in kernels.items() if k not in nccl and any(x in k for x in keys))  # noqa
+    return dict(pooling=pick("max_pool3d"), gathers=pick("index", "gather"), nccl=sum(nccl.values()))
+
+
+def multi_rank_phase(scans, traj, gt, dev, ref_traj, profile_scans=None) -> None:
+    """Phase 10: the kitti drive's scans through the parallel layer.
+    ref_traj: phase 15's captured single-card trajectory of the reference
+    path."""
     os.makedirs(MULTI_RANK_DIR, exist_ok=True)
     nccl_world_of_one(scans, traj, dev, profile_scans)
     # two ranks sharing one card: not a scaling figure
-    two_ranks("two ranks sharing one card (gloo)", "gloo", (f"cuda:{dev.index or 0}",) * 2, scans, traj, gt)
+    worker_ranks("two ranks sharing one card (gloo)", "gloo", (f"cuda:{dev.index or 0}",) * 2, scans, traj, gt)
     cards = torch.cuda.device_count()
     if cards < 2:
         print(f"phase 10c did not run: two NCCL ranks need two cards (NCCL refuses two ranks on one device), and "
               f"this machine has {cards}", flush=True)
         return
-    two_ranks("two NCCL ranks on two cards (captured)", "nccl", ("cuda:0", "cuda:1"), scans, traj, gt)
+    # 10c: one card, two and (with four) four, each a captured NCCL world
+    # of worker processes, on the fast and the reference path
+    profile = 5 if profile_scans else 0
+    ms, prof = {}, {}
+    for path, overrides, ref in (("fast", None, traj), ("reference", dict(use_fast_correspondences=False), ref_traj)):
+        for world in (1, 2, 4) if path == "fast" else (1, 2):
+            if world > cards:
+                continue
+            label = f"{world} NCCL rank{'s' if world > 1 else ''} on {world} card{'s' if world > 1 else ''}, " \
+                    f"{path} path (captured)"
+            reps = worker_ranks(label, "nccl", [f"cuda:{r}" for r in range(world)], scans, ref, gt, overrides,
+                                profile if path == "fast" and world <= 2 else 0)
+            ms[path, world] = [round(r["ms_per_frame"], 3) for r in reps]
+            if reps[0]["profile"]:
+                prof[world] = reps[0]["profile"]
+    print("phase 10c scaling, ms/frame after the first frame, each rank (one call): "
+          + "; ".join(f"{path} path, {world} card{'s' if world > 1 else ''} {v}" for (path, world), v in ms.items()),
+          flush=True)
+    head_phase(cards)
+    if prof:
+        one, two = prof[1], prof[2]
+        a, b = stage_ms(one["kernels_ms"]), stage_ms(two["kernels_ms"])
+        print(f"phase 10c profile, rank 0's device ms a frame over the last {two['frames']} frames, one card (the "
+              f"phase-6 step through the worker) against two: busy {one['busy_ms']:.3f} / {two['busy_ms']:.3f}; "
+              + "; ".join(f"{k} {a[k]:.4f} / {b[k]:.4f}" for k in a), flush=True)
+        for name in sorted(set(one["kernels_ms"]) | set(two["kernels_ms"]),
+                           key=lambda k: -max(one["kernels_ms"].get(k, 0.0), two["kernels_ms"].get(k, 0.0)))[:25]:
+            print(f"  {one['kernels_ms'].get(name, 0.0):9.4f} / {two['kernels_ms'].get(name, 0.0):9.4f} ms/frame  "
+                  f"{name[:90]}", flush=True)
 
 
 def map_differs(a, b) -> list:
@@ -1884,11 +2104,11 @@ def icp_ref_step_row(config, scans) -> dict:
                 max_abs_err=err, ms=step_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def reference_phase(kitti_scans, gt) -> dict:
+def reference_phase(kitti_scans, gt) -> tuple:
     """Phase 15: PRESETS["kitti"] with use_fast_correspondences=False (the
     reference-shaped ICP loop, registration.RefLoop) on phase 6's scans.
     Returns icp_ref_step's kernel-table row with its launches on the
-    captured drive."""
+    captured drive, and that drive's trajectory."""
     from sage_icp_tpu_torch.models.pipeline import PRESETS, SageICP
     from sage_icp_tpu_torch.ops import registration as reg
 
@@ -1897,7 +2117,8 @@ def reference_phase(kitti_scans, gt) -> dict:
     chosen = reg.REF_BLOCK_ITERATIONS
     runs = graph_pair("kitti reference path", cfg, kitti_scans[:n])
     odom, _, launches = runs[True]
-    ate = ate_of(odom.trajectory(), gt[:n])
+    traj = odom.trajectory()
+    ate = ate_of(traj, gt[:n])
     if not np.isfinite(ate) or ate >= 0.05:
         fail(f"kitti reference path: ATE {ate} m over {n} frames")
     per_frame = odom.iteration_counts()
@@ -1943,7 +2164,7 @@ def reference_phase(kitti_scans, gt) -> dict:
           f"{ {b: round(m, 3) for b, m in med.items()} }, least at {min(med, key=med.get)}); eager at "
           f"{chosen}: {eager}; the package's block length {chosen}", flush=True)
     row["launches"] = launches["icp_ref_step"]
-    return row
+    return row, traj
 
 
 def main() -> int:
@@ -1951,6 +2172,11 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true", help="stop after phase 3")
     ap.add_argument("--profile", action="store_true", help="also break a frame's time down")
     ap.add_argument("--root", default=None, help="only time the kernels of the port checked out here")
+    ap.add_argument("--multi-rank", action="store_true",
+                    help="only phase 10, after the drives it compares with (phase 6's, phase 15's captured one)")
+    ap.add_argument("--head-rank", type=int, default=None, help=argparse.SUPPRESS)  # phase 10c's head_timing
+    ap.add_argument("--head-world", type=int, default=2, help=argparse.SUPPRESS)
+    ap.add_argument("--head-init", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -1958,6 +2184,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
         return 2
+    if args.head_rank is not None:
+        head_timing(args.head_rank, args.head_world, args.head_init)
+        return 0
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -1979,14 +2208,23 @@ def main() -> int:
         print(smi, flush=True)
         print(json.dumps({"root": args.root, "card": smi, "times": times}), flush=True)
         return 0
-    rows = check_kernels(dev)
-    if args.kernels_only:
-        print(smi)
-        return 0
     from sage_icp_tpu_torch.models.pipeline import PRESETS, SageICP
 
     n = WARMUP + FRAMES
     extra = 5 if args.profile else 0
+    if args.multi_rank:
+        kitti = SageICP()
+        kitti_scans, _, kitti_gt, _ = drive("kitti", kitti, 1.3, WARMUP, FRAMES, extra)
+        reference = SageICP(dataclasses.replace(PRESETS["kitti"], use_fast_correspondences=False))
+        register(reference, kitti_scans, WARMUP, n)
+        multi_rank_phase(kitti_scans[:n], kitti.trajectory(), kitti_gt, dev, reference.trajectory(),
+                         kitti_scans[n:] if args.profile else None)
+        print(smi)
+        return 0
+    rows = check_kernels(dev)
+    if args.kernels_only:
+        print(smi)
+        return 0
     city = SageICP("city")
     city_scans, _, city_gt, city_rng = drive("city", city, 0.7, WARMUP, FRAMES, extra)
     city_traj, city_map = city.trajectory(), city.state.map
@@ -1998,7 +2236,9 @@ def main() -> int:
     kitti_traj, kitti_map = kitti.trajectory(), kitti.state.map
     sort_launches = kitti_checks(kitti, kitti_scans[n - 1])
     deskew_odom, skewed, tss, deskew_kernel_ms = runtime_phase(kitti_scans, dev)
-    multi_rank_phase(kitti_scans[:n], kitti_traj, kitti_gt, dev, kitti_scans[n:] if args.profile else None)
+    ref_row, ref_traj = reference_phase(kitti_scans, kitti_gt)  # phase 15, before 10c compares with it
+    print_row("icp_ref_step", ref_row)
+    multi_rank_phase(kitti_scans[:n], kitti_traj, kitti_gt, dev, ref_traj, kitti_scans[n:] if args.profile else None)
     dense_grid_phase("kitti", kitti_scans, kitti_traj, kitti_map, kitti_gt, kitti_scans[n:] if args.profile else None)
     dense_grid_phase("city", city_scans, city_traj, city_map, city_gt, city_scans[n:] if args.profile else None)
     long_horizon_phase()
@@ -2006,8 +2246,6 @@ def main() -> int:
     rows["icp_step"] = graph_phase(city_scans, kitti_scans, skewed, tss,
                                    {"city": city_traj, "kitti": kitti_traj, "deskew": deskew_odom.trajectory()})
     print_row("icp_step", rows["icp_step"])
-    ref_row = reference_phase(kitti_scans, kitti_gt)
-    print_row("icp_ref_step", ref_row)
     if args.profile:
         profile("city", city, city_scans[n:])
         profile("kitti", kitti, kitti_scans[n:])

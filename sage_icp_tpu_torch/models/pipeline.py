@@ -261,20 +261,50 @@ def _fast_ok(config: SageConfig) -> bool:
         config.voxel_size_map, config.local_map_range, config.max_range)
 
 
-def prepare_icp_inputs(state: OdomState, points, valid, timestamps, config: SageConfig) -> dict:
-    """Everything of the step before the ICP solve. timestamps (cap,) in
-    [0, 1] are read only with config.deskew."""
-    dev = points.device
-    eye = _eye(dev)
+def scan_head(state: OdomState, points, valid, timestamps, config: SageConfig, mesh=None):
+    """Deskew (with config.deskew, from the third pose on) and preprocess:
+    (cropped (cap, 4), crop_valid (cap,)).
+
+    mesh (parallel.sharding.Mesh), with deskew on: each rank deskews and
+    crops its contiguous share of the scan's points (Mesh.local_rows), and
+    one all-gather of the rows (their mask as a fifth float lane) rebuilds
+    the whole cropped scan on every rank, as the JAX package's SPMD step
+    gathers around the downsample's sort. A point's deskew and crop do not
+    depend on the others (scan.deskew has no batched product), so the
+    result is the unsharded head's bit for bit. Without deskew the head
+    stays whole on every rank: the crop alone costs less than the split
+    and its gather (0.028 against 0.060 device ms a kitti scan on two
+    H100s over NVLink); with deskew the two cost about the same (0.58
+    whole, 0.59 split: PERF.md)."""
+    n = points.shape[0]
+    split = mesh is not None and config.deskew
+    if split:
+        points, valid, timestamps = (mesh.local_rows(x) for x in (points, valid, timestamps))
     if config.deskew:
         # gated on the device (no host sync): from the third pose on
         deskewed = scan_ops.deskew(points, timestamps, state.prev_pose, state.last_pose)
         points = torch.where(state.num_poses > 2, deskewed, points)
     cropped, crop_valid = scan_ops.preprocess(
         points, valid, config.max_range, config.min_range, config.label_max_range)
+    if split:
+        rows = mesh.gather_rows(torch.cat([cropped, crop_valid[:, None].to(cropped.dtype)], dim=1), n)
+        cropped, crop_valid = rows[:, :4], rows[:, 4] != 0
+    return cropped, crop_valid
+
+
+def prepare_icp_inputs(state: OdomState, points, valid, timestamps, config: SageConfig, mesh=None) -> dict:
+    """Everything of the step before the ICP solve. timestamps (cap,) in
+    [0, 1] are read only with config.deskew. mesh: the scan head and the
+    dynamic filter split their per-point work across its ranks
+    (scan_head, dynamic_filter.filter_dynamic_vehicles); the downsample
+    and everything after it here stay whole on every rank."""
+    dev = points.device
+    eye = _eye(dev)
+    cropped, crop_valid = scan_head(state, points, valid, timestamps, config, mesh)
     dyn_overflow = lmk_dropped = _i32(0, dev)
     if config.dynamic_vehicle_filter:
-        cropped, crop_valid, dyn_overflow, lmk_dropped = dyn.filter_dynamic_vehicles(cropped, crop_valid, config)
+        cropped, crop_valid, dyn_overflow, lmk_dropped = dyn.filter_dynamic_vehicles(cropped, crop_valid, config,
+                                                                                      mesh)
     (source, source_valid), (frame_ds, frame_valid), ds_trunc = voxelize(cropped, crop_valid, config)
 
     motion = scan_ops.norm3((geo.se3_inverse(state.first_pose) @ state.last_pose)[:3, 3])
@@ -344,10 +374,12 @@ def odometry_step(state: OdomState, points, valid, timestamps, config: SageConfi
     The host reads the ICP loop's status once per block of iterations
     (ops/registration.py) and nothing else.
 
-    mesh (parallel.sharding.Mesh): every rank steps the whole scan; the
-    GN rows and, with shard_insert, the insert's policy rows are split
-    across the ranks (parallel/sharding.py)."""
-    prep = prepare_icp_inputs(state, points, valid, timestamps, config)
+    mesh (parallel.sharding.Mesh): the ranks split the per-point work (the
+    scan head with deskew, the filter's pooling and query rows, the
+    correspondence rows and GN, or the reference search) and, with
+    shard_insert, the insert's policy rows, and end with the same state
+    (parallel/sharding.py)."""
+    prep = prepare_icp_inputs(state, points, valid, timestamps, config, mesh)
     icp = run_icp(state.map, prep, config, mesh)
     return finish_step(state, prep, icp, config, mesh, shard_insert)
 
@@ -588,9 +620,9 @@ class DeviceStep:
     pieces eagerly (the counterpart of jit=False), on any device. Every
     call runs with the step's device current.
 
-    mesh (parallel.sharding.Mesh): the GN rows and, with shard_insert,
-    the insert's policy rows are split across its ranks, as in
-    odometry_step. Over NCCL (or in a world without a group) the
+    mesh (parallel.sharding.Mesh): the per-point work and, with
+    shard_insert, the insert's policy rows are split across its ranks, as
+    in odometry_step. Over NCCL (or in a world without a group) the
     collectives are captured with the rest: every rank replays the same
     graphs in the same order, since the summed GN terms, and so the
     status, are the same on every rank. A gloo mesh copies through the
@@ -653,10 +685,10 @@ class DeviceStep:
     def _prepare(self) -> None:
         cfg = self.config
         pts, valid, ts = _split_packed(self._input[0]) if self.packed else self._input
-        self._prep = prep = prepare_icp_inputs(self.state, pts, valid, ts, cfg)
+        self._prep = prep = prepare_icp_inputs(self.state, pts, valid, ts, cfg, self.mesh)
         args = _icp_args(self.state.map, prep, cfg)
         if self.fast_params is None:
-            self._loop = reg.RefLoop(*args, cfg.max_icp_iterations, cfg.probe_depth)
+            self._loop = reg.RefLoop(*args, cfg.max_icp_iterations, cfg.probe_depth, self.mesh)
         else:
             self._loop = reg.IcpLoop(*args, cfg.max_icp_iterations, cfg.probe_depth, self.fast_params,
                                      prep["tables"], self.mesh)

@@ -75,16 +75,18 @@ class CorrSetup(NamedTuple):
     """Queries grouped into voxel rows with their 27-neighbourhood
     candidates gathered once per anchor pose. A query that drifts during
     the solve keeps matching against its setup row's neighbourhood while
-    it stays within one voxel of it."""
+    it stays within one voxel of it. The planes, q0, grid_used and
+    row_origin_abs hold R' rows: all R, or one rank's share (corr_setup's
+    `rows`)."""
 
-    cxp: torch.Tensor  # int16 (R, M) candidate x, own-voxel-local quantized
+    cxp: torch.Tensor  # int16 (R', M) candidate x, own-voxel-local quantized
     cyp: torch.Tensor
     czp: torch.Tensor
-    clp: torch.Tensor  # int16 (R, M) candidate labels; -1 = invalid lane
-    q0: torch.Tensor  # f32 (R, P, 4) query world xyz + label at setup
-    grid_used: torch.Tensor  # bool (R, P)
-    row_rel: torch.Tensor  # int32 (R, 3) row voxel relative to center
-    row_origin_abs: torch.Tensor  # f32 (R, 3) row voxel origin, world
+    clp: torch.Tensor  # int16 (R', M) candidate labels; -1 = invalid lane
+    q0: torch.Tensor  # f32 (R', P, 4) query world xyz + label at setup
+    grid_used: torch.Tensor  # bool (R', P)
+    row_rel: torch.Tensor  # int32 (R, 3) row voxel relative to center, every row
+    row_origin_abs: torch.Tensor  # f32 (R', 3) row voxel origin, world
     center: torch.Tensor  # int32 (3,)
     order: torch.Tensor  # (N,) sort permutation
     row: torch.Tensor  # (N,) sorted query -> row (R = no seat)
@@ -94,11 +96,17 @@ class CorrSetup(NamedTuple):
 
 def corr_setup(state: hm.MapState, tables: ProbeTables, query, valid, voxel_size, probe_depth: int,
                unique_voxel_rows: int = 4096, queries_per_voxel: int = 8,
-               overflow_rows: int = 1024) -> CorrSetup:
+               overflow_rows: int = 1024, rows: tuple[int, int] | None = None) -> CorrSetup:
     """Group (N, 4) world-frame queries by voxel and gather their
     candidate planes. The neighbours' slots come from the map's dense
     index when it has one, else from the probe tables; the planes come
-    from tables.points2 either way. Never synchronises the host."""
+    from tables.points2 either way. Never synchronises the host.
+
+    rows (lo, hi): one rank's share of the R rows (parallel/sharding.py).
+    The query sort, the seats (order, row, col, n_dropped) and row_rel
+    stay whole, so every rank numbers rows and queries alike; the planes,
+    q0, grid_used and row_origin_abs are rows [lo, hi) only, equal to
+    those rows of the whole setup."""
     n = query.shape[0]
     dev = query.device
     K = state.points_per_voxel
@@ -134,26 +142,32 @@ def corr_setup(state: hm.MapState, tables: ProbeTables, query, valid, voxel_size
     hp = hm.set_rows(torch.full((Q,), n, dtype=torch.int32, device=dev), u_rank, pos, head & (u_rank < Q))
     op = hm.set_rows(torch.full((OV,), n, dtype=torch.int32, device=dev), ov_rank, pos, is_ov & (ov_rank < OV))
     start = torch.cat([hp, op])
-    row_live = start < n
+    row_live_all = start < n
+    row_rel = torch.where(row_live_all[:, None], rel_s[torch.clamp(start, max=n - 1).long()], 0)
+
+    # the rows [lo, hi) from here on
+    lo, hi = (0, R) if rows is None else rows
+    Rl = hi - lo
+    start, row_live, rel_l = start[lo:hi], row_live_all[lo:hi], row_rel[lo:hi]
     start_c = torch.clamp(start, max=n - 1).long()
-    row_rel = torch.where(row_live[:, None], rel_s[start_c], 0)
-    row_origin_abs = (row_rel + center[None, :]).to(query.dtype) * voxel_size
+    row_origin_abs = (rel_l + center[None, :]).to(query.dtype) * voxel_size
 
     rec = torch.cat([q_s, torch.where(val_s, u_rank, -1).to(query.dtype)[:, None]], dim=1)
     p_iota = torch.arange(P, device=dev)
-    g = rec[(start_c[:, None] + p_iota[None, :]) % n]  # (R, P, 5), wraps like a roll
-    oob = torch.cat([
-        hp[:, None] + p_iota[None, :] >= n,
-        (p_iota[None, :] > 0) | (op[:, None] >= n),  # overflow rows: slot 0 only
-    ])
-    row_uid = torch.arange(R, dtype=torch.int32, device=dev)[:, None]
+    g = rec[(start_c[:, None] + p_iota[None, :]) % n]  # (R', P, 5), wraps like a roll
+    row_uid = torch.arange(lo, hi, dtype=torch.int32, device=dev)[:, None]
+    oob = torch.where(
+        row_uid < Q,
+        start[:, None] + p_iota[None, :] >= n,
+        (p_iota[None, :] > 0) | (start[:, None] >= n),  # overflow rows: slot 0 only
+    )
     grid_used = torch.where(
         row_uid < Q,
         ~oob & (g[..., 4].to(torch.int32) == row_uid),
         ~oob & row_live[:, None],
     )
 
-    nb_rel = row_rel[:, None, :] + hm.neighbor_offsets(dev)[None]  # (R, 27, 3)
+    nb_rel = rel_l[:, None, :] + hm.neighbor_offsets(dev)[None]  # (R', 27, 3)
     if state.grid is not None:
         # the dense index: one 8-byte row per neighbour in place of a
         # probe_depth-deep window row
@@ -163,10 +177,10 @@ def corr_setup(state: hm.MapState, tables: ProbeTables, query, valid, voxel_size
         nb_code = torch.where(row_live[:, None], pack_rel(nb_rel), -1)
         found, slot = probe(tables, nb_rel + center, nb_code, probe_depth)
 
-    raw = tables.points2[torch.where(found, slot, 0).reshape(-1).long()]  # (R*27, 4K)
+    raw = tables.points2[torch.where(found, slot, 0).reshape(-1).long()]  # (R'*27, 4K)
     M = 27 * K
-    planes = raw.reshape(R, 27, 4, K).permute(2, 0, 1, 3).reshape(4, R, M)
-    cm = found[..., None].expand(R, 27, K).reshape(R, M)
+    planes = raw.reshape(Rl, 27, 4, K).permute(2, 0, 1, 3).reshape(4, Rl, M)
+    cm = found[..., None].expand(Rl, 27, K).reshape(Rl, M)
     n_dropped = valid.sum(dtype=torch.int32) - (val_s & (row < R)).sum(dtype=torch.int32)
     return CorrSetup(
         cxp=planes[0], cyp=planes[1], czp=planes[2],

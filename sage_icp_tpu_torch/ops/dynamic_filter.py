@@ -129,12 +129,51 @@ def _window(xyz, head_pos, width: int):
     return xyz[idx]
 
 
-def filter_dynamic_vehicles(points, valid, config):
+def _min_diffusion(comp0, nx: int, mesh=None):
+    """The 27-connected components of the occupied cells of the (nx, nx,
+    _GRID_NZ) grid of seed ids comp0 (G,) int32 (_BIG = empty): _CC_ITERS
+    rounds of 3x3x3 min-pooling, as max-pooling of the negated ids in
+    float32 (exact: ids < 2^24, and _BIG is a power of two); max_pool3d
+    pads with -inf, the identity of max, as the JAX reduce_window's init
+    2^30 is of min.
+
+    mesh: each rank pools its contiguous x-slab of planes (row_range over
+    nx) and _CC_ITERS more planes on each inner side. A round moves a
+    value one plane, so after _CC_ITERS rounds the slab's own planes hold
+    exactly what the whole grid's do; they are all-gathered in rank order
+    (gather_rows) into the whole grid."""
+    lo, hi = 0, nx
+    s0, s1 = 0, nx
+    if mesh is not None:
+        lo, hi = mesh.row_range(nx)
+        s0, s1 = max(0, lo - _CC_ITERS), min(nx, hi + _CC_ITERS)
+    slab = comp0.reshape(nx, nx * _GRID_NZ)[s0:s1].reshape(1, 1, s1 - s0, nx, _GRID_NZ)
+    occ = slab != _BIG
+    neg = -slab.to(torch.float32)
+    for _ in range(_CC_ITERS):
+        pooled = torch.nn.functional.max_pool3d(neg, 3, stride=1, padding=1)
+        neg = torch.where(occ, torch.maximum(neg, pooled), -float(_BIG))
+    comp = (-neg).to(torch.int32).reshape(s1 - s0, nx * _GRID_NZ)
+    if mesh is not None:
+        comp = mesh.gather_rows(mesh.pad_share(comp, lo - s0, hi - s0, nx), nx)
+    return comp.reshape(-1)
+
+
+def filter_dynamic_vehicles(points, valid, config, mesh=None):
     """points (N, 4) cropped scan; valid (N,). Returns (points', valid',
     overflow, landmark_cells_dropped) with moving-vehicle points masked
     out, the pass-through overflow count and the number of distinct
     landmark cells beyond _LMK_VOXEL_CAP, whose points no radius count
-    sees; both 0-dim int32."""
+    sees; both 0-dim int32.
+
+    mesh (parallel.sharding.Mesh): the ranks split the two costly stages
+    and all-gather their results in rank order: the min-diffusion by
+    x-slabs of the grid (_min_diffusion), and the VR query rows (their
+    landmark lookup, candidate planes and radius count) by row_range, each
+    rank's share padded to ceil(VR / n) rows. The class sorts, the
+    landmark table, the cluster sizes and totals and the verdict stay
+    whole on every rank, and so equal the unsharded filter's bit for bit
+    (the counts are integers)."""
     dev = points.device
     n = points.shape[0]
     nx = _grid_nx(float(config.label_max_range))
@@ -169,20 +208,11 @@ def filter_dynamic_vehicles(points, valid, config):
     posv = torch.arange(mv, device=dev)
 
     # ---- connected components on the dense occupancy grid ---------------
-    # seed = own linear cell id; 27-connectivity min-diffusion as 3x3x3
-    # min-pooling, i.e. max-pooling of the negated ids in float32 (exact:
-    # ids < 2^24, and _BIG is a power of two); max_pool3d pads with -inf,
-    # the identity of max, as the JAX reduce_window's init 2^30 is of min
+    # seed = own linear cell id; 27-connectivity min-diffusion
     comp0 = torch.full((G + 1,), _BIG, dtype=torch.int32, device=dev)
     comp0.scatter_reduce_(0, torch.where(v_head, vk, G).long(), torch.where(v_head, vk, _BIG),
                           "amin", include_self=True)
-    comp0 = comp0[:G]
-    occ = (comp0 != _BIG).reshape(1, 1, nx, nx, _GRID_NZ)
-    neg = -comp0.to(torch.float32).reshape(1, 1, nx, nx, _GRID_NZ)
-    for _ in range(_CC_ITERS):
-        pooled = torch.nn.functional.max_pool3d(neg, 3, stride=1, padding=1)
-        neg = torch.where(occ, torch.maximum(neg, pooled), -float(_BIG))
-    comp_flat = (-neg).to(torch.int32).reshape(G)
+    comp_flat = _min_diffusion(comp0[:G], nx, mesh)
 
     # per-point cluster id + cluster sizes (ids are grid cells)
     pcomp = torch.where(vlive, comp_flat[torch.clamp(vk, max=G - 1).long()], G).long()
@@ -199,8 +229,11 @@ def filter_dynamic_vehicles(points, valid, config):
     in_slot = vlive & (vrow < VR) & (v_rank < P)
     v_head_pos = _scatter_set(VR, mv, torch.where(v_head & (vu_rank < VR), vu_rank, VR),
                               posv.to(torch.int32))
-    qrows = _window(vxyz, v_head_pos, P).reshape(VR, 3 * P)
     v_seg_len = _segment_len(VR, vrow)
+    if mesh is not None:  # this rank's padded share of the rows
+        v_head_pos, v_seg_len = mesh.local_rows(v_head_pos), mesh.local_rows(v_seg_len)
+    VRl = v_head_pos.shape[0]
+    qrows = _window(vxyz, v_head_pos, P).reshape(VRl, 3 * P)
     pidx = torch.arange(P, device=dev)
     row_live = v_head_pos < mv
     q_used = (row_live[:, None] & (pidx[None, :] < torch.clamp(v_seg_len, max=P)[:, None])).to(torch.int32)
@@ -219,11 +252,13 @@ def filter_dynamic_vehicles(points, valid, config):
         & (ngz >= 0) & (ngz < _GRID_NZ) & row_live[:, None]
     )
     nlin = torch.where(nok, (ngx * nx + ngy) * _GRID_NZ + ngz, 0)
-    lrow_idx = torch.where(nok, grid_l[nlin.long()], UL)  # (VR, 27); UL = sentinel
-    # (VR, 27, K, 3) -> three (VR, M) planes, lane = neighbour * K + k
-    cx, cy, cz = lplanes[lrow_idx.long()].permute(3, 0, 1, 2).reshape(3, VR, 27 * K).contiguous()
+    lrow_idx = torch.where(nok, grid_l[nlin.long()], UL)  # (VR', 27); UL = sentinel
+    # (VR', 27, K, 3) -> three (VR', M) planes, lane = neighbour * K + k
+    cx, cy, cz = lplanes[lrow_idx.long()].permute(3, 0, 1, 2).reshape(3, VRl, 27 * K).contiguous()
     counts = nn_kernels.radius_count(
-        cx, cy, cz, qrows.contiguous(), q_used, SEARCH_RADIUS * SEARCH_RADIUS)  # (VR, P) f32
+        cx, cy, cz, qrows.contiguous(), q_used, SEARCH_RADIUS * SEARCH_RADIUS)  # (VR', P) f32
+    if mesh is not None:
+        counts = mesh.gather_rows(counts, VR)  # (VR, P), exact: integer counts
 
     # per sorted vehicle point -> its slot's count; slot-overflow points
     # add 0 to the cluster total (counted below)

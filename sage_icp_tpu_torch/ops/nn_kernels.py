@@ -57,25 +57,29 @@ def _check_rows(cx, cy, cz, cl, offx, offy, offz, P):
 
 def _dequant(cx, cy, cz, cl, offx, offy, offz, scale):
     """(R, M) row-local candidate planes and the invalid-lane mask."""
-    cxf = cx.to(torch.float32) * scale + offx
-    cyf = cy.to(torch.float32) * scale + offy
-    czf = cz.to(torch.float32) * scale + offz
+    cxf = cx.to(torch.float32).mul_(scale).add_(offx)
+    cyf = cy.to(torch.float32).mul_(scale).add_(offy)
+    czf = cz.to(torch.float32).mul_(scale).add_(offz)
     clf = cl.to(torch.float32)
     return cxf, cyf, czf, clf, clf < 0.0
 
 
 def _select(cxf, cyf, czf, clf, invalid, qx, qy, qz, ql, sem_th):
     """(R, P) first-minimum winners for (R, P) row-local queries, and the
-    (R, P, M) unweighted squared distances."""
-    dx = cxf[:, None, :] - qx[..., None]
-    dy = cyf[:, None, :] - qy[..., None]
-    dz = czf[:, None, :] - qz[..., None]
-    d2 = dx * dx + dy * dy + dz * dz
-    c = clf[:, None, :]
-    q = ql[..., None]
-    sem = (c == q) | ((c * q) == 0.0)
+    (R, P, M) unweighted squared distances: d2 = (dx dx + dy dy) + dz dz,
+    the label match (c == q) | (c q == 0). The (R, P, M) temporaries are
+    updated in place; c q == 0 is taken as c == 0 with q finite, or q == 0
+    (c is an int16 label, so the same test without the product)."""
+    d2 = cxf[:, None, :] - qx[..., None]
+    d2.mul_(d2)
+    t = cyf[:, None, :] - qy[..., None]
+    d2.add_(t.mul_(t))
+    t = torch.sub(czf[:, None, :], qz[..., None], out=t)
+    d2.add_(t.mul_(t))
+    sem = ((clf[:, None, :] == ql[..., None]) | ((clf == 0.0)[:, None, :] & torch.isfinite(ql)[..., None])
+           | (ql == 0.0)[..., None])
     d2w = torch.where(sem, d2 * sem_th, d2)
-    d2w = torch.where(invalid[:, None, :], torch.finfo(torch.float32).max, d2w)
+    d2w.masked_fill_(invalid[:, None, :], torch.finfo(torch.float32).max)
     return torch.argmin(d2w, dim=-1), d2
 
 
@@ -326,11 +330,13 @@ def skip_margin(r2) -> np.float32:
 
 
 def radius_count_plain(cx, cy, cz, queries, used, r2):
-    """One (R, M) compare per slot, as the TPU kernel body loops: a
-    broadcast to (R, P, M) would hold ~680 MB per temporary at the kitti
-    filter's shapes."""
+    """One (R', M) compare per slot over the R' rows with a used slot (the
+    others count 0), as the TPU kernel body loops: a broadcast to (R, P,
+    M) would hold ~680 MB per temporary at the kitti filter's shapes."""
     P = used.shape[1]
     r2 = device_constant(float(r2), torch.float32, cx.device)
+    rows = torch.nonzero((used != 0).any(dim=1))[:, 0]
+    cx, cy, cz, queries, live = cx[rows], cy[rows], cz[rows], queries[rows], used[rows]
     outs = []
     for p in range(P):
         dx = cx - queries[:, 3 * p : 3 * p + 1]
@@ -338,5 +344,7 @@ def radius_count_plain(cx, cy, cz, queries, used, r2):
         dz = cz - queries[:, 3 * p + 2 : 3 * p + 3]
         d2 = dx * dx + dy * dy + dz * dz
         cnt = (d2 <= r2).sum(dim=1, dtype=torch.int32).to(torch.float32)
-        outs.append(cnt * used[:, p].to(torch.float32))
-    return torch.stack(outs, dim=1)
+        outs.append(cnt * live[:, p].to(torch.float32))
+    out = torch.zeros(used.shape, dtype=torch.float32, device=used.device)
+    out[rows] = torch.stack(outs, dim=1)
+    return out

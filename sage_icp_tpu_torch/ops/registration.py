@@ -32,12 +32,15 @@ queued in blocks of REF_BLOCK_ITERATIONS with one status read a block. A
 stopped loop's step writes the identity as its increment, so the searches
 left in a block change nothing.
 
-Across the ranks of a mesh (parallel/sharding.py) each rank runs the GN
-kernel on its contiguous slice of the frozen rows; the (18,) sums are
+Across the ranks of a mesh (parallel/sharding.py) each rank builds only
+its contiguous share of the frozen rows (corr_setup's `rows`: the query
+sort and the seats stay whole on every rank, the candidate gathers are
+the share's) and runs the GN kernel on it; the (18,) sums are
 all-gathered as an (n, 18) buffer and added in rank order on the device,
 the same on every rank, so every rank takes the same steps and reads the
-same status. Nothing of that reads the host, so a captured step records
-the gather with the rest (over NCCL).
+same status. The reference branch splits its sources the same way and
+gathers its normal equations (RefLoop). Nothing of that reads the host,
+so a captured step records the gathers with the rest (over NCCL).
 """
 
 from __future__ import annotations
@@ -116,18 +119,20 @@ class FrozenRows(NamedTuple):
     n_dropped: torch.Tensor  # 0-dim int32, of the whole setup
 
 
-def frozen_rows(setup: cf.CorrSetup, mesh=None) -> FrozenRows:
-    """This rank's rows [lo, hi) of the setup, as views (a plane's row
-    stride 2M is a multiple of the GN kernel's load width, so a view
-    keeps the plane base aligned), and their tile map."""
-    R = setup.q0.shape[0]
-    lo, hi = (0, R) if mesh is None else mesh.row_range(R)
-    used = setup.grid_used[lo:hi].to(torch.int32)
+def frozen_rows(setup: cf.CorrSetup, rows: tuple[int, int] | None = None) -> FrozenRows:
+    """The setup's rows as the GN kernel reads them, and their tile map.
+    rows (lo, hi): the setup holds only those rows of R (corr_setup's
+    `rows`), whose row_rel is still every row's. Each plane is one
+    contiguous block of R' rows of stride 2M, a multiple of the kernel's
+    load width, so every plane base stays aligned."""
+    Rl = setup.q0.shape[0]
+    lo, hi = (0, Rl) if rows is None else rows
+    used = setup.grid_used.to(torch.int32)
     return FrozenRows(
-        planes=tuple(p[lo:hi] for p in (setup.cxp, setup.cyp, setup.czp, setup.clp)),
-        q0=setup.q0.reshape(R, -1)[lo:hi].contiguous(),
-        origin=setup.row_origin_abs[lo:hi].contiguous(),
-        row_abs=(setup.row_rel + setup.center[None, :])[lo:hi].contiguous(),
+        planes=(setup.cxp, setup.cyp, setup.czp, setup.clp),
+        q0=setup.q0.reshape(Rl, -1),
+        origin=setup.row_origin_abs,
+        row_abs=(setup.row_rel[lo:hi] + setup.center[None, :]),
         used=used,
         tile_map=nn_kernels.default_tile_map(used),
         n_dropped=setup.n_dropped,
@@ -178,11 +183,15 @@ class IcpLoop:
         self.loop_i = torch.zeros((ik.LOOP_I,), dtype=torch.int32, device=dev)
         if self.max_iterations <= 0:
             self.loop_i[ik.I_STATUS].fill_(ik.DONE)
-        self.rows = frozen_rows(self._setup_at(guess), mesh)
+        n_rows = fast_params["unique_voxel_rows"] + fast_params["overflow_rows"]
+        self.row_span = None if mesh is None else mesh.row_range(n_rows)
+        self.rows = self._rows_at(guess)
 
-    def _setup_at(self, pose) -> cf.CorrSetup:
-        return cf.corr_setup(self.map_state, self.tables, geo.transform_points(pose, self.frame), self.valid,
-                             self.voxel_size, self.probe_depth, **self.fast_params)
+    def _rows_at(self, pose) -> FrozenRows:
+        """This rank's frozen rows with the queries at `pose`."""
+        setup = cf.corr_setup(self.map_state, self.tables, geo.transform_points(pose, self.frame), self.valid,
+                              self.voxel_size, self.probe_depth, **self.fast_params, rows=self.row_span)
+        return frozen_rows(setup, self.row_span)
 
     def _sums(self) -> torch.Tensor:
         f, rows = self.loop_f, self.rows
@@ -213,7 +222,7 @@ class IcpLoop:
         f[ik.F_ANCHOR].copy_(anchor.reshape(-1))
         f[ik.F_T].copy_(torch.eye(4, dtype=torch.float32, device=f.device).reshape(-1))
         self.loop_i[ik.I_STATUS].zero_()
-        new = frozen_rows(self._setup_at(anchor), self.mesh)
+        new = self._rows_at(anchor)
         for dst, src in zip(self.rows.planes + self.rows[1:], new.planes + new[1:]):
             dst.copy_(src)
 
@@ -243,12 +252,24 @@ class RefLoop:
     equations, icp_ref_step launch, source update)), status (the one
     read a block) and result. The source and the state keep their
     storage from the constructor on, so a CUDA graph captured over
-    block() replays against them."""
+    block() replays against them.
+
+    mesh (parallel.sharding.Mesh): each rank keeps its contiguous share
+    of the N sources (row_range), searches and builds the normal
+    equations on it, and transforms only it; the (6, 6) and (6,) terms
+    and the accepted count are all-gathered as one (n, 43) float32 buffer
+    and added in rank order on the device, the same on every rank, so
+    every rank takes the same step and reads the same status. Counts stay
+    exact in float32 (N < 2^24)."""
 
     def __init__(self, map_state: hm.MapState, frame, valid, initial_guess, voxel_size,
-                 max_correspondence_distance, kernel, sem_th, max_iterations: int, probe_depth: int):
+                 max_correspondence_distance, kernel, sem_th, max_iterations: int, probe_depth: int,
+                 mesh=None):
         dev = frame.device
-        self.map_state, self.valid = map_state, valid
+        if mesh is not None:
+            lo, hi = mesh.row_range(frame.shape[0])
+            frame, valid = frame[lo:hi], valid[lo:hi]
+        self.map_state, self.valid, self.mesh = map_state, valid, mesh
         self.voxel_size, self.sem_th, self.probe_depth = voxel_size, sem_th, probe_depth
         self.max_iterations = int(max_iterations)
         self.max_corr = device_scalar(max_correspondence_distance, torch.float32, dev)
@@ -271,8 +292,19 @@ class RefLoop:
             tgt, accept = hm.get_correspondences(self.map_state, self.source, self.valid, self.voxel_size,
                                                  self.max_corr, self.sem_th, self.probe_depth)
             JTJ, JTr = build_normal_equations(self.source, tgt, accept, self.kernel)
-            ik.icp_ref_step(JTJ, JTr, accept.sum(dtype=torch.int32), f, self.loop_i, self.max_iterations)
+            ncorr = accept.sum(dtype=torch.int32)
+            if self.mesh is not None:
+                JTJ, JTr, ncorr = self._summed(JTJ, JTr, ncorr)
+            ik.icp_ref_step(JTJ, JTr, ncorr, f, self.loop_i, self.max_iterations)
             self.source.copy_(geo.transform_points(f[ik.F_EST].view(4, 4), self.source))
+
+    def _summed(self, JTJ, JTr, ncorr):
+        """Every rank's terms and count, added in rank order."""
+        parts = self.mesh.all_gather(torch.cat([JTJ.reshape(36), JTr, ncorr.to(torch.float32)[None]])[None])
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return total[:36].reshape(6, 6), total[36:42], total[42].to(torch.int32)
 
     def status(self) -> int:
         return read_status(self.loop_i)
@@ -329,12 +361,11 @@ def register_frame(map_state: hm.MapState, frame, valid, initial_guess, voxel_si
     0.45 voxel. Without, each iteration runs the reference-shaped search,
     on the device too (RefLoop).
 
-    mesh (parallel.sharding.Mesh): the frozen rows are split across its
-    ranks, each summing its share with the GN kernel (module docstring).
-    The reference-shaped branch ignores it: every rank runs the whole
-    search."""
+    mesh (parallel.sharding.Mesh): the frozen rows, or the reference
+    branch's sources, are split across its ranks, each summing its share
+    (module docstring)."""
     if fast_params is not None:
         return IcpLoop(map_state, frame, valid, initial_guess, voxel_size, max_correspondence_distance, kernel,
                        sem_th, max_iterations, probe_depth, fast_params, tables, mesh).run()
     return RefLoop(map_state, frame, valid, initial_guess, voxel_size, max_correspondence_distance, kernel, sem_th,
-                   max_iterations, probe_depth).run()
+                   max_iterations, probe_depth, mesh).run()

@@ -57,24 +57,51 @@ def preprocess(points, valid, max_range: float, min_range: float, label_max_rang
     return pts, keep
 
 
+def _fma_dot3(a, b) -> torch.Tensor:
+    """a[0] * b[0] + a[1] * b[1] + a[2] * b[2] for float32 tensors, as a
+    fused multiply-add chain: each step one float64 product and sum (the
+    product of two float32 values is exact there) rounded to float32."""
+    acc = (a[0].to(torch.float64) * b[0]).to(torch.float32)
+    acc = (acc.to(torch.float64) + a[1].to(torch.float64) * b[1]).to(torch.float32)
+    return (acc.to(torch.float64) + a[2].to(torch.float64) * b[2]).to(torch.float32)
+
+
 def deskew(points, timestamps, start_pose, finish_pose):
     """points (N, 4) xyz+label, timestamps (N,) in [0, 1], start/finish
     (4, 4) poses -> (N, 4), xyz moved by exp((t - 0.5) * delta),
     delta = log(start^-1 finish), all in float32 as in the reference.
 
-    The rotation is applied as the reference's einsum rounds it on the
-    CPU, a fused multiply-add chain fma(R2, z, fma(R1, y, R0 * x)), then
-    + t. Each fused step is one float64 product and sum (the product of
-    two float32 values is exact there) rounded to float32, so the card and
-    the CPU give the same bits."""
+    Each point's exponential is written out element by element (the
+    Rodrigues and V coefficients as in geometry.se3_exp; hat(phi)^2 =
+    phi phi^T - |phi|^2 I, its diagonal summed in float64 and rounded
+    once; V rho as a fused multiply-add chain) and its rotation applied as the
+    reference's einsum rounds it on the CPU, fma(R2, z, fma(R1, y, R0 * x)),
+    then + t: no batched matrix product, so a point's result does not
+    depend on the batch it is in (a rank's share of the scan gives the
+    bits of the whole scan) and the card and the CPU give the same bits."""
     delta = geo.se3_log(geo.se3_inverse(start_pose) @ finish_pose)  # (6,)
-    T = geo.se3_exp((timestamps - 0.5)[:, None] * delta[None, :])  # (N, 4, 4)
-    R = T[:, :3, :3].to(torch.float64)
-    p = points[:, :3].to(torch.float64)
-    acc = (R[:, :, 0] * p[:, 0:1]).to(torch.float32)
-    acc = (acc.to(torch.float64) + R[:, :, 1] * p[:, 1:2]).to(torch.float32)
-    acc = (acc.to(torch.float64) + R[:, :, 2] * p[:, 2:3]).to(torch.float32)
-    return torch.cat([acc + T[:, :3, 3], points[:, 3:]], dim=-1)
+    s = timestamps - 0.5
+    rho = [s * delta[i] for i in range(3)]
+    phi = [s * delta[3 + i] for i in range(3)]
+    theta2 = phi[0] * phi[0] + phi[1] * phi[1] + phi[2] * phi[2]
+    theta = torch.sqrt(theta2 + geo._EPS * geo._EPS)
+    small = theta < 1e-4
+    sin_t = geo._sin(theta)
+    a = torch.where(small, 1.0 - theta2 / 6.0, sin_t / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - geo._cos(theta)) / theta2)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (theta - sin_t) / (theta2 * theta))
+    K = [[None, -phi[2], phi[1]], [phi[2], None, -phi[0]], [-phi[1], phi[0], None]]  # hat(phi)
+    d = [p.to(torch.float64) for p in phi]
+    KK = [[phi[i] * phi[j] for j in range(3)] for i in range(3)]
+    for i in range(3):
+        j, k = (i + 1) % 3, (i + 2) % 3
+        KK[i][i] = (-(d[j] * d[j] + d[k] * d[k])).to(torch.float32)
+    # I + a K + b K^2 and I + b K + c K^2: K's diagonal is 0
+    R = [[1.0 + b * KK[i][j] if i == j else a * K[i][j] + b * KK[i][j] for j in range(3)] for i in range(3)]
+    V = [[1.0 + c * KK[i][j] if i == j else b * K[i][j] + c * KK[i][j] for j in range(3)] for i in range(3)]
+    xyz = [points[:, i] for i in range(3)]
+    out = [_fma_dot3(R[i], xyz) + _fma_dot3(V[i], rho) for i in range(3)]
+    return torch.cat([torch.stack(out, dim=-1), points[:, 3:]], dim=-1)
 
 
 def make_label_group_lut(voxel_labels, num_labels: int = 260, device=None) -> torch.Tensor:

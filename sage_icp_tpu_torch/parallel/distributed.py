@@ -5,8 +5,8 @@
     odom = ShardedSageICP("kitti", mesh)
 
 Each process drives one card (cuda:LOCAL_RANK) and receives the whole
-scan; the ranks split the GN rows and the insert's policy rows between
-them (parallel/sharding.py). The backend is NCCL on the card; gloo runs
+scan; the ranks split its per-point work and the insert's policy rows
+between them (parallel/sharding.py). The backend is NCCL on the card; gloo runs
 only when the caller names it (a CPU run, or ranks sharing one card,
 which NCCL refuses). Every process group has a finite timeout, so a rank
 that stops taking part in the collectives fails the others instead of

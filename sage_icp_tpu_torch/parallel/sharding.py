@@ -1,23 +1,40 @@
-"""Multi-GPU execution: the step's two kernels split their rows across
-the ranks of a torch.distributed process group.
+"""Multi-GPU execution: the step's per-point work split across the ranks
+of a torch.distributed process group.
 
-The JAX package runs its step SPMD over a device mesh and lets GSPMD
-insert the collectives. Here every rank is one process on one device
-that runs the whole step on the whole scan (preprocess, filter,
-downsample, the correspondence-row setup and the map stay replicated)
-and shares out the work of the two kernels on the step:
+The JAX package runs its step SPMD over a device mesh, the scan's point
+axis partitioned, and lets GSPMD insert the collectives. Here every rank
+is one process on one device. Each splits the per-point stages into
+contiguous shares in rank order (Mesh.row_range), and the results that
+the next stage needs whole are all-gathered in rank order
+(Mesh.gather_rows: one collective; a share that does not tile is padded
+to ceil(rows / n) rows of dead work, dropped after the gather):
 
-  * the GN iteration: each rank runs the fused GN kernel on its
-    contiguous slice of the frozen correspondence rows; the (18,) sums
-    are all-gathered as an (n, 18) buffer and added in rank order on
-    the device, the same on every rank, so every rank solves the same
-    6x6 system and takes the same loop decisions (ops/registration.py);
-  * the insert's retention policy: each rank runs the policy kernel on
-    its U/n compact rows and the updated rows are all-gathered for the
-    replicated write-back. Rows are independent, so the result is
-    exactly the single-device insert (ops/hashmap.py).
+  * the scan head, with deskew on: deskew and the crop of its
+    scan_capacity / n points, then the cropped scan gathered
+    (models/pipeline.py::scan_head); without deskew the crop alone costs
+    less than the gather and stays whole (PERF.md);
+  * the dynamic filter: the 24 min-pooling rounds on its x-slab of the
+    grid plus a 24-plane halo, and the landmark lookup, candidate planes
+    and radius_count kernel of its VR / n query rows; the component grid
+    and the counts gathered (ops/dynamic_filter.py);
+  * the correspondence rows: the neighbour probe and the candidate-plane
+    gathers of its R / n rows (correspondence_fast.corr_setup's `rows`),
+    on which it runs the fused GN kernel; the (18,) sums are gathered as
+    an (n, 18) buffer and added in rank order on the device
+    (ops/registration.py::IcpLoop);
+  * or, without fast correspondences, the reference search and the
+    normal equations of its N / n sources, their terms gathered and added
+    in rank order (ops/registration.py::RefLoop);
+  * the insert's retention policy on its U / n compact rows, the updated
+    rows gathered for the replicated write-back (ops/hashmap.py).
 
-With one rank the step equals the single-device step bit for bit. The
+The global decisions stay whole on every rank, so every rank numbers rows
+and points alike and ends with the same state: the downsample's stable
+sorts, the filter's class sorts, landmark table and verdict, corr_setup's
+seats, the 6x6 solves, the map and its write-back. Every split but the
+two sums is exact, so the state is the unsharded step's bit for bit
+except for the order in which the ranks' GN or normal-equation sums are
+added; with one rank it equals the single-device step bit for bit. The
 step is the device-resident DeviceStep (models/pipeline.py), as the JAX
 package's sharded step is a jitted, donated program: over NCCL on the
 card it is captured as CUDA graphs, the collectives inside them; over
@@ -31,6 +48,7 @@ import dataclasses
 import torch
 
 from sage_icp_tpu_torch.models import pipeline as pl
+from sage_icp_tpu_torch.ops.constants import device_constant
 from sage_icp_tpu_torch.parallel.distributed import init_distributed  # noqa: F401  (re-export)
 
 POINTS_AXIS = "points"
@@ -56,6 +74,33 @@ class Mesh:
     def row_range(self, n_rows: int) -> tuple[int, int]:
         """This rank's contiguous share [lo, hi) of n_rows rows."""
         return self.rank * n_rows // self.size, (self.rank + 1) * n_rows // self.size
+
+    def pad_share(self, x: torch.Tensor, lo: int, hi: int, n_rows: int) -> torch.Tensor:
+        """Rows [lo, hi) of x, padded to the largest share of n_rows,
+        ceil(n_rows / size), with copies of row hi - 1 (dead work, dropped
+        by gather_rows): a view when the share needs no padding."""
+        c = -(-n_rows // self.size)
+        if hi - lo == c:
+            return x[lo:hi]
+        idx = torch.arange(lo, lo + c, device=x.device).clamp_(max=hi - 1)
+        return x[idx]
+
+    def local_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's share of x's rows (row_range), padded as pad_share
+        pads it."""
+        return self.pad_share(x, *self.row_range(x.shape[0]), x.shape[0])
+
+    def gather_rows(self, x: torch.Tensor, n_rows: int) -> torch.Tensor:
+        """The inverse of local_rows: every rank's padded share (c, ...) ->
+        the n_rows real rows (n_rows, ...) in rank order, on every rank."""
+        out = self.all_gather(x)
+        c = x.shape[0]
+        if c * self.size == n_rows:
+            return out
+        # rank r's share holds row_range's (r + 1) n / size - r n / size real rows
+        keep = [r * c + i for r in range(self.size)
+                for i in range((r + 1) * n_rows // self.size - r * n_rows // self.size)]
+        return out[device_constant(keep, torch.int64, out.device)]
 
     @property
     def captures(self) -> bool:

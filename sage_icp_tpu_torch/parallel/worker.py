@@ -20,10 +20,13 @@ gloo or on the CPU. The rank writes to --out:
   rank_<rank>.json   which step ran (graph), the aux totals, the ICP
                      iterations of each frame, cuda_lib.launches() (the
                      kernels' own counts, graph replays included), the
-                     row counts the GN and policy wrappers were called
-                     with (a Python call each: every launch of an eager
-                     step, but only the first frame's and the captures'
-                     of a captured one), and ms per frame
+                     row counts the GN, policy and radius-count wrappers
+                     were called with (a Python call each: every launch
+                     of an eager step, but only the first frame's and the
+                     captures' of a captured one), ms per frame after
+                     the first (frames under --profile left out), and
+                     with --profile N the device time of the last N frames
+                     by kernel
 """
 
 from __future__ import annotations
@@ -40,8 +43,9 @@ import torch
 from sage_icp_tpu_torch.ops import cuda_lib, nn_kernels, policy_kernel
 from sage_icp_tpu_torch.ops.scan import INVALID_COORD
 
-# the wrappers of the two row-sharded kernels; a call's rows are its first argument's
-SHARDED_WRAPPERS = ((nn_kernels, "fused_gn_iteration"), (policy_kernel, "apply_policy"))
+# the wrappers of the row-sharded kernels; a call's rows are its first argument's
+SHARDED_WRAPPERS = ((nn_kernels, "fused_gn_iteration"), (policy_kernel, "apply_policy"),
+                    (nn_kernels, "radius_count"))
 
 
 def save_scans(path: str, scans) -> None:
@@ -79,7 +83,25 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--scans", type=str, required=True, help="(F, N, 4) float32 .npy from save_scans")
     ap.add_argument("--out", type=str, required=True)
     ap.add_argument("--timeout", type=float, default=300.0, help="process-group timeout in seconds")
+    ap.add_argument("--profile", type=int, default=0,
+                    help="drive the last N scans under torch.profiler and report their device time by kernel")
     return ap.parse_args(argv)
+
+
+def device_profile(odom, scans) -> dict:
+    """The device time of registering `scans` under torch.profiler: busy
+    ms a frame and {kernel name: ms a frame}, the 40 longest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for scan in scans:
+            odom.register_frame(scan[scan[:, 0] < 1.0e6])
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ms = {e.key: e.self_device_time_total / 1e3 / len(scans) for e in events}
+    top = dict(sorted(ms.items(), key=lambda kv: -kv[1])[:40])
+    return dict(frames=len(scans), busy_ms=sum(ms.values()), kernels_ms=top)
 
 
 def main(argv=None) -> dict:
@@ -107,9 +129,11 @@ def main(argv=None) -> dict:
             setattr(module, name, counting(name, fn))
         odom = ShardedSageICP(load_config(args.preset, args.config), mesh)
         scans = np.load(args.scans)
+        timed = len(scans) - args.profile
         cuda_lib.reset_launches()
-        for scan in scans:
+        for scan in scans[:timed]:
             odom.register_frame(scan[scan[:, 0] < 1.0e6])
+        profiled = device_profile(odom, scans[timed:]) if args.profile else None
         launches = cuda_lib.launches()
         odom.release()  # NCCL's communicator waits for the graphs that hold its kernels
     finally:
@@ -129,7 +153,7 @@ def main(argv=None) -> dict:
         aux_totals={f: float(v) for f, v in zip(totals._fields, totals)},
         overflow_total=int(totals.overflow_total()), icp_iterations=[int(i) for i in odom.icp_iters],
         launches=launches, kernel_rows={name: {str(k): v for k, v in c.items()} for name, c in rows.items()},
-        ms_per_frame=1e3 * float(np.mean(odom.timings[1:] or odom.timings)),
+        ms_per_frame=1e3 * float(np.mean(odom.timings[1:timed] or odom.timings[:timed])), profile=profiled,
     )
     with open(os.path.join(args.out, f"rank_{r}.json"), "w") as f:
         json.dump(report, f)

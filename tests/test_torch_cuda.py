@@ -1027,7 +1027,8 @@ def test_two_ranks_sharing_the_card(card, tmp_path):
         slots = rep["launches"]["icp_step"]
         assert slots % treg.BLOCK_ITERATIONS == 0 and slots >= n * treg.BLOCK_ITERATIONS
         assert rep["aux_totals"]["nonfinite_pose"] == 0 and sum(rep["icp_iterations"]) <= slots
-        assert rep["kernel_rows"] == {"fused_gn_iteration": {"320": slots}, "apply_policy": {"1024": n}}
+        assert rep["kernel_rows"] == {"fused_gn_iteration": {"320": slots}, "apply_policy": {"1024": n},
+                                      "radius_count": {}}  # the tiny config has no filter
         assert rep["launches"]["fused_gn_iteration"] == slots and rep["launches"]["apply_policy"] == n
 
 

@@ -3,16 +3,20 @@ parallel/worker.py) on the CPU, against the JAX package and against the
 port's single-device step.
 
 Ranks are processes: `python -m sage_icp_tpu_torch.parallel.worker` (or a
-small insert script), two of them over gloo, meeting through a file://
-rendezvous under tmp_path (no TCP port, so parallel test workers cannot
-collide), each capped at two intra-op threads.
+small insert script), over gloo, meeting through a file:// rendezvous
+under a temporary directory (no TCP port, so parallel test workers cannot
+collide), each capped at two intra-op threads. Every worker group the
+tests read is spawned once, all together (worker_runs).
 
 Tolerances: pad_config_for_mesh equal to JAX's field for field; the
-sharded step at one rank equal to SageICP bit for bit; two ranks equal to
-each other bit for bit, and within 5e-4 of JAX's single-device SageICP and
-of the port's (test_sharded_step_matches_single_device's bound: only the
-order in which the two halves' GN sums are added differs); the row-sharded
-insert equal to the single-device insert bit for bit."""
+sharded step at one rank equal to SageICP bit for bit, on the fast and the
+reference path; two ranks equal to each other bit for bit, and within
+5e-4 of JAX's single-device SageICP and of the port's
+(test_sharded_step_matches_single_device's bound: only the order in which
+the two halves' GN or normal-equation sums are added differs), on the
+fast path, with the filter and deskew on, and on the reference path; the
+row-sharded insert equal to the single-device insert bit for bit. The
+rank-local pieces are held in tests/test_torch_sharded_points.py."""
 
 import dataclasses
 import json
@@ -63,12 +67,44 @@ def tiny_scans():
     return [synthetic.render_scan(pts, labs, gt[i], rng, n_target=3000) for i in range(3)]
 
 
+# the configurations the ranks drive: the tiny config's fast path, then
+# with the dynamic filter and deskew on (the filter's and the scan head's
+# splits; labels kept within 20 m, an 88 x 88 x 32 grid that ~110 vehicle
+# and ~650 landmark points of each tiny scan fall in), and on the
+# reference path (the reference search's split)
+DRIVES = {
+    "fast": {},
+    "filter": dict(dynamic_vehicle_filter=True, deskew=True, label_max_range=20.0),
+    "reference": dict(use_fast_correspondences=False),
+}
+
+
+def drive_config(name):
+    return dataclasses.replace(port_tiny(), **DRIVES[name])
+
+
 @pytest.fixture(scope="module")
-def port_single(tiny_scans):
-    odom = tpl.SageICP(port_tiny(), device="cpu")
-    for s in tiny_scans:
-        odom.register_frame(s)
-    return odom
+def single_runs(tiny_scans):
+    """name -> the port's single-device SageICP driven over the tiny scans
+    with DRIVES[name], and JAX's SageICP's trajectory; each run once."""
+    runs = {}
+
+    def run(name):
+        if name not in runs:
+            odom = tpl.SageICP(drive_config(name), device="cpu")
+            jax_odom = jpl.SageICP(jpl.SageConfig(**dataclasses.asdict(drive_config(name))))
+            for s in tiny_scans:
+                odom.register_frame(s)
+                jax_odom.register_frame(s)
+            runs[name] = odom, jax_odom.trajectory()
+        return runs[name]
+
+    return run
+
+
+@pytest.fixture(scope="module")
+def port_single(single_runs):
+    return single_runs("fast")[0]
 
 
 def spawn(cmds):
@@ -90,17 +126,41 @@ def spawn(cmds):
     return outs
 
 
-def run_workers(tmp_path, scans, config, world):
+def worker_cmds(tmp_path, scans, config, world):
+    """The commands of a gloo group of `world` worker ranks driving
+    `config` over `scans`, its files under tmp_path."""
     save_scans(str(tmp_path / "scans.npy"), scans)
     fields = {k: v for k, v in dataclasses.asdict(config).items() if v != getattr(tpl.PRESETS["kitti"], k)}
     (tmp_path / "config.json").write_text(json.dumps(fields))
-    cmds = [[sys.executable, "-m", "sage_icp_tpu_torch.parallel.worker", "--rank", str(r), "--world", str(world),
+    return [[sys.executable, "-m", "sage_icp_tpu_torch.parallel.worker", "--rank", str(r), "--world", str(world),
              "--init", f"file://{tmp_path / 'rendezvous'}", "--backend", "gloo", "--device", "cpu",
              "--preset", "kitti", "--config", str(tmp_path / "config.json"),
              "--scans", str(tmp_path / "scans.npy"), "--out", str(tmp_path)] for r in range(world)]
-    spawn(cmds)
+
+
+def worker_results(tmp_path, world):
     return [dict(poses=np.load(tmp_path / f"poses_{r}.npy"), map=dict(np.load(tmp_path / f"map_{r}.npz")),
                  report=json.loads((tmp_path / f"rank_{r}.json").read_text())) for r in range(world)]
+
+
+def run_workers(tmp_path, scans, config, world):
+    """One gloo group of `world` worker ranks, run to its end: the ranks'
+    trajectories, maps and reports."""
+    spawn(worker_cmds(tmp_path, scans, config, world))
+    return worker_results(tmp_path, world)
+
+
+# the gloo groups the tests read: (DRIVES name, world size)
+GROUPS = (("fast", 1), ("fast", 2), ("filter", 2), ("reference", 1), ("reference", 2))
+
+
+@pytest.fixture(scope="module")
+def worker_runs(tmp_path_factory, tiny_scans):
+    """Every gloo group of GROUPS, spawned together once (a rendezvous
+    each): (name, world) -> the ranks' trajectories, maps and reports."""
+    dirs = {g: tmp_path_factory.mktemp(f"{g[0]}_{g[1]}") for g in GROUPS}
+    spawn([c for (name, world), d in dirs.items() for c in worker_cmds(d, tiny_scans, drive_config(name), world)])
+    return {(name, world): worker_results(d, world) for (name, world), d in dirs.items()}
 
 
 def test_card_tests_use_the_tiny_config():
@@ -255,10 +315,26 @@ def test_sharded_step_routes_rows_to_the_kernels(tiny_scans, monkeypatch, shard_
     assert seen["apply_policy"] == [1024 if shard_insert else 2048] * 2
 
 
-def test_world_of_one_over_gloo_equals_sage_icp(tmp_path, tiny_scans, port_single):
+def test_sharded_step_at_one_rank_equals_sage_icp_on_the_reference_path(tiny_scans, single_runs):
+    """ShardedSageICP on a world of one without fast correspondences: the
+    reference loop's gathered terms change nothing; trajectory, map,
+    iterations and totals equal SageICP's bit for bit."""
+    single = single_runs("reference")[0]
+    odom = tsh.ShardedSageICP(drive_config("reference"), tsh.make_mesh("cpu"))
+    for s in tiny_scans:
+        odom.register_frame(s)
+    np.testing.assert_array_equal(odom.trajectory(), single.trajectory())
+    for a, b in zip(odom.state.map, single.state.map):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert odom.icp_iters == single.icp_iters
+    for a, b in zip(odom.aux_totals(), single.aux_totals()):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_world_of_one_over_gloo_equals_sage_icp(worker_runs, port_single):
     """One worker process in a gloo group of one: the collectives run and
     change nothing."""
-    (rank,) = run_workers(tmp_path, tiny_scans, port_tiny(), 1)
+    (rank,) = worker_runs["fast", 1]
     np.testing.assert_array_equal(rank["poses"], port_single.trajectory())
     for name, t in port_single.state.map._asdict().items():
         assert (t is None) == (name not in rank["map"]), name
@@ -266,31 +342,79 @@ def test_world_of_one_over_gloo_equals_sage_icp(tmp_path, tiny_scans, port_singl
             np.testing.assert_array_equal(rank["map"][name], t.numpy())
 
 
-def test_two_ranks_agree_and_match_single_device(tmp_path, tiny_scans, port_single):
-    """Two ranks over gloo on tests/test_parallel.py's tiny config and
-    world: equal to each other bit for bit, maps slot for slot; within
-    5e-4 of the JAX package's single-device SageICP and of the port's.
-    Each rank ran GN on its 320 of the 640 rows in every slot of every
-    block of ICP iterations (at least one block a frame, enough slots for
-    every iteration) and the policy on its 1,024 of the 2,048 insert rows
-    every frame."""
-    r0, r1 = run_workers(tmp_path, tiny_scans, port_tiny(), 2)
+def two_ranks_agree(worker_runs, single_runs, name):
+    """Two gloo ranks driving DRIVES[name]: equal to each other bit for
+    bit, maps slot for slot, within 5e-4 of the port's single device and
+    of JAX's SageICP. Returns the two ranks' reports."""
+    r0, r1 = worker_runs[name, 2]
     np.testing.assert_array_equal(r0["poses"], r1["poses"])
-    for name in r0["map"]:
-        np.testing.assert_array_equal(r0["map"][name], r1["map"][name])
+    assert r0["map"].keys() == r1["map"].keys()
+    for key in r0["map"]:
+        np.testing.assert_array_equal(r0["map"][key], r1["map"][key])
     assert r0["poses"].shape == (3, 4, 4) and np.isfinite(r0["poses"]).all()
-    np.testing.assert_allclose(r0["poses"], port_single.trajectory(), atol=5e-4)
-    jax_odom = jpl.SageICP(tiny_config())
-    for s in tiny_scans:
-        jax_odom.register_frame(s)
-    np.testing.assert_allclose(r0["poses"], jax_odom.trajectory(), atol=5e-4)
-    for r in (r0, r1):
-        rep = r["report"]
-        # the GN wrapper's calls on this rank's 320 rows: BLOCK_ITERATIONS a block
-        iters, slots = sum(rep["icp_iterations"]), rep["kernel_rows"]["fused_gn_iteration"]["320"]
-        assert slots % BLOCK_ITERATIONS == 0 and slots >= 3 * BLOCK_ITERATIONS and iters <= slots
-        assert rep["kernel_rows"] == {"fused_gn_iteration": {"320": slots}, "apply_policy": {"1024": 3}}
-        assert rep["icp_iterations"] == r0["report"]["icp_iterations"]
+    single, jax_traj = single_runs(name)
+    np.testing.assert_allclose(r0["poses"], single.trajectory(), atol=5e-4)
+    np.testing.assert_allclose(r0["poses"], jax_traj, atol=5e-4)
+    assert r0["report"]["icp_iterations"] == r1["report"]["icp_iterations"]
+    assert r0["report"]["aux_totals"] == r1["report"]["aux_totals"]
+    return r0["report"], r1["report"]
+
+
+def gn_slots(rep, rows: str) -> int:
+    """The GN wrapper's calls on `rows` rows: BLOCK_ITERATIONS a block, at
+    least one block a frame, enough slots for every iteration."""
+    slots = rep["kernel_rows"]["fused_gn_iteration"][rows]
+    assert slots % BLOCK_ITERATIONS == 0 and slots >= 3 * BLOCK_ITERATIONS
+    assert sum(rep["icp_iterations"]) <= slots
+    return slots
+
+
+def test_world_of_one_over_gloo_equals_sage_icp_on_the_reference_path(worker_runs, single_runs):
+    """One worker process in a gloo group of one without fast
+    correspondences: the reference loop's gather of its terms runs and
+    changes nothing; trajectory and map equal SageICP's bit for bit."""
+    single = single_runs("reference")[0]
+    (rank,) = worker_runs["reference", 1]
+    np.testing.assert_array_equal(rank["poses"], single.trajectory())
+    for name, t in single.state.map._asdict().items():
+        assert (t is None) == (name not in rank["map"]), name
+        if t is not None:
+            np.testing.assert_array_equal(rank["map"][name], t.numpy())
+    assert rank["report"]["icp_iterations"] == single.icp_iters
+
+
+def test_two_ranks_agree_and_match_single_device(worker_runs, single_runs):
+    """Two ranks over gloo on tests/test_parallel.py's tiny config and
+    world (the fast path, filter and deskew off): equal to each other bit
+    for bit, maps slot for slot; within 5e-4 of the JAX package's
+    single-device SageICP and of the port's. Each rank built and ran GN
+    on its 320 of the 640 rows in every slot of every block of ICP
+    iterations and the policy on its 1,024 of the 2,048 insert rows every
+    frame; the radius count never ran (no filter)."""
+    for rep in two_ranks_agree(worker_runs, single_runs, "fast"):
+        assert rep["kernel_rows"] == {"fused_gn_iteration": {"320": gn_slots(rep, "320")},
+                                      "apply_policy": {"1024": 3}, "radius_count": {}}
+
+
+def test_two_ranks_agree_with_the_filter_and_deskew(worker_runs, single_runs):
+    """The same with the dynamic filter and deskew on: each rank deskewed
+    and cropped half the scan, pooled its slab of the filter's grid and
+    ran the radius count on its 2,048 of the 4,096 query rows every
+    frame, besides its GN and policy rows."""
+    for rep in two_ranks_agree(worker_runs, single_runs, "filter"):
+        assert rep["kernel_rows"] == {"fused_gn_iteration": {"320": gn_slots(rep, "320")},
+                                      "apply_policy": {"1024": 3}, "radius_count": {"2048": 3}}
+
+
+def test_two_ranks_agree_on_the_reference_path(worker_runs, single_runs):
+    """The same without fast correspondences: each rank searched its 512
+    of the 1,024 sources in every iteration (the reference step kernel
+    once an iteration: the launches' count, as on the card, is not kept
+    on the CPU) and ran the policy on its 1,024 insert rows; GN never
+    ran."""
+    for rep in two_ranks_agree(worker_runs, single_runs, "reference"):
+        assert rep["kernel_rows"] == {"fused_gn_iteration": {}, "apply_policy": {"1024": 3}, "radius_count": {}}
+        assert 3 <= sum(rep["icp_iterations"]) <= 3 * 30
 
 
 # one rank of the row-sharded insert: the map and the batch from inputs.npz,
