@@ -3,6 +3,7 @@
     python3 chip_smoke.py [--kernels-only] [--profile]
     python3 chip_smoke.py --multi-rank [--profile]   (phase 10 alone; 10c wants 4 cards)
     python3 chip_smoke.py --root DIR
+    python3 chip_smoke.py --stage-clock   (phase 6, then phase 16 alone)
     python3 bench_torch.py        (the bench alone; phase 13 runs it in process)
 
 With --root, only the kernel times of the port checked out at DIR (the
@@ -163,6 +164,18 @@ Phases, each fatal on failure:
      2, 4 and 8 iterations a block (alternated), the host's launch calls,
      waits and the idle share at each, and the eager step's at the
      package's block length.
+ 16. the recorder's device stage clock (runtime/tracing.py, csrc/
+     stage_clock.cu), on captured drives of phase 6's first 16 scans:
+     the kitti preset at the package's block length, and kitti_gt (the
+     filter off) at blocks of 2 iterations, so that frames run more
+     pieces than a row keeps. After every piece the frame's row is read
+     back; each stamp's time is taken from it, and the frame's stamps
+     replayed through tracing.stamp_row with those times must give every
+     row read, and the recorder's record, exactly. The live rows equal
+     the loop's count (icp_kernel.I_LIVE_ROWS), the card's frame counter
+     the frames begun, and the stamps launched those the pieces make; a
+     step that raises (a wrong-shaped input) leaves no frame, and the
+     frames after it keep their own rows.
 The line before the device line is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits non-zero and prints no result.
@@ -196,7 +209,7 @@ SORT_NS = (2**16, 2**18)  # bitonic checks; the kitti scan's keys pad to 2^18
 GN_SUM_RTOL = 1e-4
 # the __global__ functions of sage_icp_tpu_torch/csrc, as the profiler names them
 PORT_KERNELS = ("semantic_nn_kernel", "gn_iteration_kernel", "retention_policy_kernel", "radius_count_kernel",
-                "icp_step_kernel", "bitonic_tile_kernel", "bitonic_global_kernel")
+                "icp_step_kernel", "bitonic_tile_kernel", "bitonic_global_kernel", "stage_clock_kernel")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DRIVE_ROWS = os.path.join(ROOT, "build", "drive_rows.pt")
 MULTI_RANK_DIR = os.path.join(ROOT, "build", "multi_rank")
@@ -2167,6 +2180,153 @@ def reference_phase(kitti_scans, gt) -> tuple:
     return row, traj
 
 
+def piece_stamps(name: str, filtered: bool) -> list:
+    """(op, slot) of each stamp a piece of the step launches, in order
+    (models/pipeline.py::DeviceStep)."""
+    from sage_icp_tpu_torch.runtime import tracing as tr
+
+    if name == "prepare":
+        heads = [tr.HEAD, tr.FILTER, tr.DOWNSAMPLE] if filtered else [tr.HEAD, tr.DOWNSAMPLE]
+        return [(tr.BEGIN, 0)] + [(tr.SPLIT, k) for k in heads] + [(tr.CLOSE, tr.ICP)]
+    return [(tr.START, 0), (tr.END_FRAME, tr.UPDATE) if name == "finish" else (tr.CLOSE, tr.ICP)]
+
+
+def stamp_times(stamps, before, after) -> list:
+    """The time of each stamp of a piece, read from the frame's row after
+    it (`after`; `before`, the row before it)."""
+    from sage_icp_tpu_torch.runtime import tracing as tr
+
+    times, t = [], None
+    for op, slot in stamps:
+        if op == tr.BEGIN:
+            t = int(after[tr.FIRST])
+        elif op == tr.START:
+            t = int(after[tr.PIECE0 + 2 * min(int(before[tr.PIECES]), tr.MAX_PIECES - 1)])
+        elif op == tr.SPLIT:
+            t = t + int(after[slot])
+        else:
+            t = int(after[tr.LAST])
+        times.append(t)
+    return times
+
+
+def clock_drive(label: str, config, scans, block: int, fail_at: int | None = None) -> dict:
+    """Phase 16 on one captured drive of `scans` at blocks of `block`
+    iterations; with fail_at, a wrong-shaped step after that many frames.
+    Returns its frames, pieces, stamps and largest row difference."""
+    from sage_icp_tpu_torch.models import pipeline as pl
+    from sage_icp_tpu_torch.ops import icp_kernel as ik
+    from sage_icp_tpu_torch.ops import registration as reg
+    from sage_icp_tpu_torch.runtime import tracing as tr
+
+    rec = tr.RECORDER
+    reads = []  # (frame id, seq, piece, row after it, live rows after finish)
+
+    def piece(self, name):
+        real_piece(self, name)
+        frame = rec._local.stack.current
+        torch.cuda.synchronize()
+        row = frame.ring.rows[frame.seq % rec.capacity].cpu().numpy().copy()
+        live = int(self._loop.loop_i[ik.I_LIVE_ROWS]) if name == "finish" else None
+        reads.append((frame.id, frame.seq, name, row, live))
+
+    real_piece, real_block = pl.DeviceStep._piece, reg.BLOCK_ITERATIONS
+    pl.DeviceStep._piece, reg.BLOCK_ITERATIONS = piece, block
+    try:
+        odom = pl.SageICP(config)
+        ring = odom._step.clock._ring
+        reset_counts()
+        for i, scan in enumerate(scans):
+            if i == fail_at:
+                begun = ring.begun
+                try:
+                    odom._step(odom.state, torch.zeros((3, 4)))
+                except ValueError:
+                    pass
+                else:
+                    fail(f"phase 16, {label}: a wrong-shaped step did not raise")
+                if ring.begun != begun:
+                    fail(f"phase 16, {label}: a step that raised left the host's frame count at {ring.begun}, "
+                         f"not {begun}")
+            odom.register_frame(scan)
+        torch.cuda.synchronize()
+        stamps_launched = counts()["stage_clock"]
+        odom.release()
+    finally:
+        pl.DeviceStep._piece, reg.BLOCK_ITERATIONS = real_piece, real_block
+    snap = rec.read()
+    frames = {f.frame: f for f in snap.frames_of([odom.drive])}
+    if len(frames) != len(scans):
+        fail(f"phase 16, {label}: {len(frames)} frame records for {len(scans)} frames")
+    if int(ring.counter) != ring.begun:
+        fail(f"phase 16, {label}: the card's frame counter {int(ring.counter)}, the frames begun {ring.begun}")
+    filtered = config.dynamic_vehicle_filter
+    err, stamps, most, replay, last = 0, 0, 0, {}, {}
+    for fid, seq, name, row, live in reads:
+        ops = piece_stamps(name, filtered)
+        stamps += len(ops)
+        before = last.get(fid)
+        want = replay.setdefault(fid, np.zeros(tr.SLOTS, dtype=np.int64))
+        for (op, slot), t in zip(ops, stamp_times(ops, before, row)):
+            tr.stamp_row(want, op, slot, t, seq, live)
+        err = max(err, int(np.abs(want - row).max()))
+        if not np.array_equal(want, row):
+            fail(f"phase 16, {label}: frame {fid}'s row after {name} differs from its replay: card {row.tolist()}, "
+                 f"replay {want.tolist()}")
+        last[fid] = row
+        if name == "finish":
+            f = frames.get(fid)
+            if f is None or live != f.live_rows or f.live_rows != int(row[tr.LIVE_ROWS]):
+                fail(f"phase 16, {label}: frame {fid}'s live rows {None if f is None else f.live_rows}, the loop's "
+                     f"count {live}")
+            got = (f.stages_ns, f.first_ns, f.last_ns, f.pieces_run, f.pieces)
+            n = int(want[tr.PIECES])
+            exp = ({k: int(want[v]) for k, v in tr.STAGES.items()}, int(want[tr.FIRST]), int(want[tr.LAST]), n,
+                   [(int(want[tr.PIECE0 + 2 * i]), int(want[tr.PIECE0 + 2 * i + 1]))
+                    for i in range(min(n, tr.MAX_PIECES))])
+            if got != exp:
+                fail(f"phase 16, {label}: frame {fid}'s record {got} differs from its replay {exp}")
+            if n <= tr.MAX_PIECES and f.device_ns != sum(b - a for a, b in f.pieces):
+                fail(f"phase 16, {label}: frame {fid}'s stages sum to {f.device_ns} ns, its pieces to "
+                     f"{sum(b - a for a, b in f.pieces)}")
+            most = max(most, n)
+    if stamps_launched != stamps:
+        fail(f"phase 16, {label}: {stamps_launched} stage_clock launches, the pieces make {stamps}")
+    pieces = [f.pieces_run for f in frames.values()]
+    print(f"phase 16, {label}: {len(frames)} captured frames at blocks of {block}, pieces a frame {pieces}, "
+          f"{stamps} stamps; every row read back equal to its replay, records and live rows equal"
+          f"{'; a step that raised after frame ' + str(fail_at) + ' left no frame' if fail_at else ''}", flush=True)
+    return dict(frames=len(frames), most=most, stamps=stamps, err=err)
+
+
+def stage_clock_phase(kitti_scans, dev) -> dict:
+    """Phase 16 (docstring). Returns the stage clock's row of the kernel
+    table."""
+    from sage_icp_tpu_torch.models.pipeline import PRESETS
+    from sage_icp_tpu_torch.ops import registration as reg
+    from sage_icp_tpu_torch.runtime import tracing as tr
+
+    scans = kitti_scans[:16]
+    a = clock_drive("kitti", PRESETS["kitti"], scans, reg.BLOCK_ITERATIONS, fail_at=5)
+    b = clock_drive("kitti_gt", PRESETS["kitti_gt"], scans, 2)
+    if max(a["most"], b["most"]) <= tr.MAX_PIECES:
+        fail(f"phase 16: no frame ran more than {tr.MAX_PIECES} pieces")
+    rec = tr.Recorder(frames=4)
+    clock = tr.StageClock(rec, dev)
+    rec.begin_frame(clock)
+    clock.begin()
+    ms = time_ms(lambda: clock.split(tr.ICP), reps=100)
+    row = np.zeros(tr.SLOTS, dtype=np.int64)
+    t0 = time.perf_counter()
+    for k in range(10_000):
+        tr.stamp_row(row, tr.SPLIT, tr.ICP, k)
+    plain_ms = (time.perf_counter() - t0) / 10_000 * 1e3
+    rec.end_frame()
+    return dict(route="cuda", source="sage_icp_tpu_torch/csrc/stage_clock.cu", replaces="none (the recorder's)",
+                max_abs_err=float(max(a["err"], b["err"])), ms=ms, plain_ms=plain_ms, bound_ms=0.0,
+                bound_by="launch latency", library_ms=None)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true", help="stop after phase 3")
@@ -2174,6 +2334,7 @@ def main() -> int:
     ap.add_argument("--root", default=None, help="only time the kernels of the port checked out here")
     ap.add_argument("--multi-rank", action="store_true",
                     help="only phase 10, after the drives it compares with (phase 6's, phase 15's captured one)")
+    ap.add_argument("--stage-clock", action="store_true", help="only phase 6, then phase 16")
     ap.add_argument("--head-rank", type=int, default=None, help=argparse.SUPPRESS)  # phase 10c's head_timing
     ap.add_argument("--head-world", type=int, default=2, help=argparse.SUPPRESS)
     ap.add_argument("--head-init", default=None, help=argparse.SUPPRESS)
@@ -2221,6 +2382,13 @@ def main() -> int:
                          kitti_scans[n:] if args.profile else None)
         print(smi)
         return 0
+    if args.stage_clock:
+        kitti_scans, launches, _, _ = drive("kitti", SageICP(), 1.3, WARMUP, FRAMES, 0)
+        row = stage_clock_phase(kitti_scans, dev)
+        print_row("stage_clock", row)
+        print(json.dumps({"kernels": [dict(name="stage_clock", launches=launches["stage_clock"], **row)]}), flush=True)
+        print(smi)
+        return 0
     rows = check_kernels(dev)
     if args.kernels_only:
         print(smi)
@@ -2235,6 +2403,8 @@ def main() -> int:
     kitti_scans, launches, kitti_gt, kitti_rng = drive("kitti", kitti, 1.3, WARMUP, FRAMES, extra)
     kitti_traj, kitti_map = kitti.trajectory(), kitti.state.map
     sort_launches = kitti_checks(kitti, kitti_scans[n - 1])
+    rows["stage_clock"] = stage_clock_phase(kitti_scans, dev)
+    print_row("stage_clock", rows["stage_clock"])
     deskew_odom, skewed, tss, deskew_kernel_ms = runtime_phase(kitti_scans, dev)
     ref_row, ref_traj = reference_phase(kitti_scans, kitti_gt)  # phase 15, before 10c compares with it
     print_row("icp_ref_step", ref_row)

@@ -36,6 +36,8 @@
 //                                           f[34] |x| of the last step
 //   f[40:56] est, the reference mode's last increment exp(x)
 //   s[0] iterations  s[1] correspondences of the last step  s[2] status
+//   s[3] live rows of the current rows (counted at each row build)
+//   s[4] live rows summed over the running steps (the GN rows the loop ran)
 // Status: 0 running, 1 done (converged or at max_iterations), 2 re-anchor
 // needed before the next iteration. A launch with a status other than 0
 // changes nothing (the reference mode sets est to the identity).
@@ -201,6 +203,7 @@ __global__ void icp_step_kernel(const float* __restrict__ sums, float* __restric
   st[0] = it;
   st[1] = ncorr;
   st[2] = !more ? kDone : drift >= drift_lim ? kReanchor : kRunning;
+  st[4] += st[3];
 }
 
 // The reference-shaped loop's step (registration.RefLoop), after the
@@ -243,7 +246,7 @@ __global__ void icp_ref_step_kernel(const float* __restrict__ jtj, const float* 
 
 }  // namespace
 
-// sums: the 18 GN sums; f: 56 floats, s: 4 int32 of loop state (above),
+// sums: the 18 GN sums; f: 56 floats, s: 5 int32 of loop state (above),
 // all device pointers; updated in place; launches: the kernel's launch
 // counter (launch_count.cuh). One launch of one thread.
 extern "C" int sage_icp_step(const void* sums, void* f, void* s, int max_iterations,
@@ -255,7 +258,7 @@ extern "C" int sage_icp_step(const void* sums, void* f, void* s, int max_iterati
 }
 
 // jtj (36 floats, row-major), jtr (6), ncorr (one int32): the reference
-// loop's normal equations and correspondence count; f: 56 floats, s: 4
+// loop's normal equations and correspondence count; f: 56 floats, s: 5
 // int32 of loop state (above), updated in place. One launch of one
 // thread.
 extern "C" int sage_icp_ref_step(const void* jtj, const void* jtr, const void* ncorr, void* f, void* s,

@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -43,6 +42,7 @@ from sage_icp_tpu_torch.ops import icp_kernel as ik
 from sage_icp_tpu_torch.ops import registration as reg
 from sage_icp_tpu_torch.ops import scan as scan_ops
 from sage_icp_tpu_torch.ops.constants import device_constant
+from sage_icp_tpu_torch.runtime import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -292,20 +292,27 @@ def scan_head(state: OdomState, points, valid, timestamps, config: SageConfig, m
     return cropped, crop_valid
 
 
-def prepare_icp_inputs(state: OdomState, points, valid, timestamps, config: SageConfig, mesh=None) -> dict:
+def prepare_icp_inputs(state: OdomState, points, valid, timestamps, config: SageConfig, mesh=None,
+                       stamp=None) -> dict:
     """Everything of the step before the ICP solve. timestamps (cap,) in
     [0, 1] are read only with config.deskew. mesh: the scan head and the
     dynamic filter split their per-point work across its ranks
     (scan_head, dynamic_filter.filter_dynamic_vehicles); the downsample
-    and everything after it here stay whole on every rank."""
+    and everything after it here stay whole on every rank. stamp: the
+    step's stage clock (tracing.StageClock.split), called with the stage
+    after the scan head, the filter and the downsample."""
     dev = points.device
     eye = _eye(dev)
+    stamp = stamp or (lambda slot: None)
     cropped, crop_valid = scan_head(state, points, valid, timestamps, config, mesh)
+    stamp(tracing.HEAD)
     dyn_overflow = lmk_dropped = _i32(0, dev)
     if config.dynamic_vehicle_filter:
         cropped, crop_valid, dyn_overflow, lmk_dropped = dyn.filter_dynamic_vehicles(cropped, crop_valid, config,
                                                                                       mesh)
+        stamp(tracing.FILTER)
     (source, source_valid), (frame_ds, frame_valid), ds_trunc = voxelize(cropped, crop_valid, config)
+    stamp(tracing.DOWNSAMPLE)
 
     motion = scan_ops.norm3((geo.se3_inverse(state.first_pose) @ state.last_pose)[:3, 3])
     has_moved = (state.num_poses > 0) & (motion > 5.0 * config.min_motion_th)
@@ -581,6 +588,13 @@ def _capture_graph(fn, stream: torch.cuda.Stream) -> torch.cuda.CUDAGraph:
     return graph
 
 
+# the step's and SageICP's spans (runtime/tracing.py), bound once
+_SPANS = {name: tracing.span(name) for name in ("upload", "pad", "wait.pose", "trajectory", "reinitialize",
+                                                  "launch.prepare", "launch.block", "launch.reanchor",
+                                                  "launch.finish")}
+_CALL_SPANS = {name: tracing.RECORDER.span(name, opens_frame=True) for name in ("frame", "chunk")}
+
+
 def on_device(device):
     """The context that makes `device` current for the kernels' launches
     (cuda_lib.call): torch.cuda.device for a card, nothing for the CPU."""
@@ -633,7 +647,14 @@ class DeviceStep:
 
     The returned pose, aux and totals are the step's own tensors, valid
     until the next call. Running totals (`totals`, `lmk_total`) fold every
-    frame as SageICP.aux_totals does; `reset_totals` zeroes them."""
+    frame as SageICP.aux_totals does; `reset_totals` zeroes them.
+
+    Every call is a frame of the recorder (runtime/tracing.py): its
+    input copy is the `upload` span, its pieces the `launch.*` spans, and
+    each piece stamps the device's stage clock (captured with it): prepare
+    opens the frame and stamps the head, filter and downsample stages, its
+    rest and every block and reanchor piece go to the icp stage, finish to
+    the update stage and, last, the frame's GN live-row count."""
 
     def __init__(self, config: SageConfig, device=None, graph: bool = True, packed: bool = True, mesh=None,
                  shard_insert: bool = True, donate: bool = True):
@@ -650,6 +671,7 @@ class DeviceStep:
         self.fast_params = _fast_params(config)
         self.graph, self.packed, self.donate = graph, packed, donate
         geo.pin_full_fp32()
+        self.clock = tracing.StageClock(tracing.RECORDER, self.device)
         self.state: OdomState | None = None
         self._input: list | None = None
         self._graphs: dict | None = None
@@ -677,15 +699,18 @@ class DeviceStep:
     def _load(self, inputs) -> None:
         if self._input is None:
             self._input = [torch.empty(x.shape, dtype=x.dtype, device=self.device) for x in inputs]
-        for d, x in zip(self._input, inputs):
-            if x.shape != d.shape or x.dtype != d.dtype:
-                raise ValueError(f"the step's input is {tuple(d.shape)} {d.dtype}, got {tuple(x.shape)} {x.dtype}")
-            d.copy_(x)
+        with _SPANS["upload"]:
+            for d, x in zip(self._input, inputs):
+                if x.shape != d.shape or x.dtype != d.dtype:
+                    raise ValueError(f"the step's input is {tuple(d.shape)} {d.dtype}, got {tuple(x.shape)} "
+                                     f"{x.dtype}")
+                d.copy_(x)
 
     def _prepare(self) -> None:
-        cfg = self.config
+        cfg, clock = self.config, self.clock
+        clock.begin()
         pts, valid, ts = _split_packed(self._input[0]) if self.packed else self._input
-        self._prep = prep = prepare_icp_inputs(self.state, pts, valid, ts, cfg, self.mesh)
+        self._prep = prep = prepare_icp_inputs(self.state, pts, valid, ts, cfg, self.mesh, clock.split)
         args = _icp_args(self.state.map, prep, cfg)
         if self.fast_params is None:
             self._loop = reg.RefLoop(*args, cfg.max_icp_iterations, cfg.probe_depth, self.mesh)
@@ -693,20 +718,21 @@ class DeviceStep:
             self._loop = reg.IcpLoop(*args, cfg.max_icp_iterations, cfg.probe_depth, self.fast_params,
                                      prep["tables"], self.mesh)
         self._loop.block()
+        clock.close(tracing.ICP)
 
-    def _drive(self) -> None:
-        """Blocks (and re-anchors) until the loop is done: one status read
-        per block."""
-        loop, graphs = self._loop, self._graphs
-        while (s := loop.status()) != ik.DONE:
-            if graphs is not None:
-                graphs["reanchor" if s == ik.REANCHOR else "block"].replay()
-                continue
-            if s == ik.REANCHOR:
-                loop.reanchor()
-            loop.block()
+    def _block(self) -> None:
+        self.clock.start()
+        self._loop.block()
+        self.clock.close(tracing.ICP)
+
+    def _reanchor(self) -> None:
+        self.clock.start()
+        self._loop.reanchor()
+        self._loop.block()
+        self.clock.close(tracing.ICP)
 
     def _finish(self) -> None:
+        self.clock.start()
         icp = self._loop.result()
         new, pose, aux, lmk = finish_step(self.state, self._prep, icp, self.config, self.mesh, self.shard_insert,
                                           in_place=True)
@@ -717,11 +743,25 @@ class DeviceStep:
         self.lmk_total.add_(lmk)
         self.chunk_lmk.add_(lmk)
         self._out = (pose, aux, lmk)
+        self.clock.end_frame(tracing.UPDATE, self._loop.loop_i[ik.I_LIVE_ROWS])
 
-    def _eager(self) -> None:
-        self._prepare()
-        self._drive()
-        self._finish()
+    def _piece(self, name: str) -> None:
+        """The captured piece `name` replayed, or run eagerly before the
+        captures and without graphs."""
+        with _SPANS["launch." + name]:
+            if self._graphs is not None:
+                self._graphs[name].replay()
+            else:
+                getattr(self, "_" + name)()
+
+    def _run(self) -> None:
+        """The frame: prepare, blocks (and re-anchors) until the loop is
+        done with one status read per block, finish."""
+        self._piece("prepare")
+        while (s := self._loop.status()) != ik.DONE:
+            self._piece("reanchor" if s == ik.REANCHOR else "block")
+        self._piece("finish")
+        tracing.RECORDER.close_frame()
 
     def _capture(self) -> tuple:
         """The first frame, eagerly on a side stream; then the captures.
@@ -730,13 +770,13 @@ class DeviceStep:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            self._eager()
+            self._run()
         main.wait_stream(side)
         out = self._out
         graphs = {"prepare": _capture_graph(self._prepare, side)}
-        graphs["block"] = _capture_graph(self._loop.block, side)
+        graphs["block"] = _capture_graph(self._block, side)
         if self.fast_params is not None:
-            graphs["reanchor"] = _capture_graph(lambda: (self._loop.reanchor(), self._loop.block()), side)
+            graphs["reanchor"] = _capture_graph(self._reanchor, side)
         graphs["finish"] = _capture_graph(self._finish, side)
         self._graphs = graphs
         return out
@@ -744,18 +784,17 @@ class DeviceStep:
     def __call__(self, state: OdomState, *inputs):
         """(state, inputs...) -> (state, pose, aux, landmark_cells_dropped)."""
         with on_device(self.device):
-            self._adopt(state)
-            self._load(inputs)
-            if not self.graph:
-                self._eager()
-                out = self._out
-            elif self._graphs is None:
-                out = self._capture()
-            else:
-                self._graphs["prepare"].replay()
-                self._drive()
-                self._graphs["finish"].replay()
-                out = self._out
+            tracing.RECORDER.begin_frame(self.clock)
+            try:
+                self._adopt(state)
+                self._load(inputs)
+                if self.graph and self._graphs is None:
+                    out = self._capture()
+                else:
+                    self._run()
+                    out = self._out
+            finally:
+                tracing.RECORDER.end_frame()
         return (self.state, *out)
 
     def chunk(self, state: OdomState, scans: torch.Tensor):
@@ -816,7 +855,12 @@ class SageICP:
     on the card (graph=None or True), eager on the CPU (graph=None or
     False), with either ICP branch; graph=True on the CPU raises. With a
     mesh (parallel.sharding.Mesh; ShardedSageICP passes one) the step is
-    sharded."""
+    sharded.
+
+    The recorder (runtime/tracing.py) holds each frame's record: its host
+    spans (`frame` or `chunk`, `pad`, `upload`, `launch.*`, `wait.*`), its
+    device stage times and its GN live rows; `drive` is the recorder's
+    drive this SageICP is on (a new one at every reinitialize)."""
 
     def __init__(self, config: SageConfig | str = "kitti", device=None, graph: bool | None = None, mesh=None):
         if isinstance(config, str):
@@ -831,13 +875,15 @@ class SageICP:
         self.reinitialize()
 
     def reinitialize(self):
-        """Empty map, empty trajectory (reference sageICP.hpp:94-99)."""
-        self.state = init_state(self.config, self.device)
-        self.poses: list = []  # (4, 4) numpy, or device tensors (4, 4) / (W, 4, 4)
-        self.timings: list[float] = []
-        self._iters: list = []  # per-frame iterations, (n,) int32 device tensors
-        self._last_aux = None
-        self._step.reset_totals()
+        """Empty map, empty trajectory (reference sageICP.hpp:94-99); a new
+        drive of the recorder."""
+        self.drive = tracing.RECORDER.new_drive()
+        with _SPANS["reinitialize"]:
+            self.state = init_state(self.config, self.device)
+            self.poses: list = []  # (4, 4) numpy, or device tensors (4, 4) / (W, 4, 4)
+            self._iters: list = []  # per-frame iterations, (n,) int32 device tensors
+            self._last_aux = None
+            self._step.reset_totals()
 
     def release(self) -> None:
         """Drop the step's captured graphs (DeviceStep.release): before
@@ -848,25 +894,26 @@ class SageICP:
         """(W, scan_capacity, 4|5) packed host buffer: float32 rows padded
         with INVALID_COORD, or int16 (quantized_scan_upload) padded with
         QSCAN_INVALID. With deskew on, lane 4 holds per-point timestamps
-        (given, or the azimuth phase)."""
+        (given, or the azimuth phase). The `pad` span."""
         cfg = self.config
         cap = cfg.scan_capacity
         lanes = 5 if cfg.deskew else 4
-        if cfg.quantized_scan_upload:
-            buf = np.full((len(scans), cap, lanes), QSCAN_INVALID, dtype=np.int16)
-        else:
-            buf = np.full((len(scans), cap, lanes), scan_ops.INVALID_COORD, dtype=np.float32)
-        for i, s in enumerate(scans):
-            n = min(len(s), cap)
-            rows = np.asarray(s[:n, :4], dtype=np.float32)
-            if lanes == 5:
-                ts = timestamps[i] if timestamps is not None else None
-                ts = azimuth_timestamps(rows[:, :3]) if ts is None else ts[:n]
-                rows = np.concatenate([rows, np.asarray(ts, np.float32)[:, None]], axis=1)
+        with _SPANS["pad"]:
             if cfg.quantized_scan_upload:
-                _quantize_scan_host(rows, buf[i])
+                buf = np.full((len(scans), cap, lanes), QSCAN_INVALID, dtype=np.int16)
             else:
-                buf[i, :n] = rows
+                buf = np.full((len(scans), cap, lanes), scan_ops.INVALID_COORD, dtype=np.float32)
+            for i, s in enumerate(scans):
+                n = min(len(s), cap)
+                rows = np.asarray(s[:n, :4], dtype=np.float32)
+                if lanes == 5:
+                    ts = timestamps[i] if timestamps is not None else None
+                    ts = azimuth_timestamps(rows[:, :3]) if ts is None else ts[:n]
+                    rows = np.concatenate([rows, np.asarray(ts, np.float32)[:, None]], axis=1)
+                if cfg.quantized_scan_upload:
+                    _quantize_scan_host(rows, buf[i])
+                else:
+                    buf[i, :n] = rows
         return buf
 
     def _record(self, aux: StepAux, iters: torch.Tensor) -> None:
@@ -880,14 +927,17 @@ class SageICP:
         """points (n, 4) float xyz+label -> the 4x4 pose. timestamps (n,)
         in [0, 1] are used with deskew on; without them the azimuth phase
         stands in. block=False returns the pose as a device tensor without
-        waiting; trajectory() fetches it."""
-        buf = self.pad_chunk([points], None if timestamps is None else [timestamps])[0]
-        t0 = time.perf_counter()
-        self.state, pose, aux, _ = self._step(self.state, torch.from_numpy(buf))
-        self._record(aux, aux.icp_iterations.clone())
-        pose = pose.cpu().numpy() if block else pose.clone()
-        self.timings.append(time.perf_counter() - t0)
-        self.poses.append(pose)
+        waiting; trajectory() fetches it. The `frame` span."""
+        with _CALL_SPANS["frame"]:
+            buf = self.pad_chunk([points], None if timestamps is None else [timestamps])[0]
+            self.state, pose, aux, _ = self._step(self.state, torch.from_numpy(buf))
+            self._record(aux, aux.icp_iterations.clone())
+            if block:
+                with _SPANS["wait.pose"]:
+                    pose = pose.cpu().numpy()
+            else:
+                pose = pose.clone()
+            self.poses.append(pose)
         return pose
 
     def register_chunk(self, scans, timestamps: list | None = None) -> torch.Tensor:
@@ -896,13 +946,15 @@ class SageICP:
         A tensor already on the device is stepped as it is, not copied
         again (bench_torch.py stages the next chunk's upload ahead).
         Appends the (W, 4, 4) device poses to the trajectory and returns
-        them without waiting."""
-        if isinstance(scans, list):
-            scans = self.pad_chunk(scans, timestamps)
-        dev_scans = torch.as_tensor(scans).to(self.device)
-        self.state, poses, iters, aux, _ = self._step.chunk(self.state, dev_scans)
-        self._record(aux, iters)
-        self.poses.append(poses)
+        them without waiting. The `chunk` span."""
+        with _CALL_SPANS["chunk"]:
+            if isinstance(scans, list):
+                scans = self.pad_chunk(scans, timestamps)
+            with _SPANS["upload"]:
+                dev_scans = torch.as_tensor(scans).to(self.device)
+            self.state, poses, iters, aux, _ = self._step.chunk(self.state, dev_scans)
+            self._record(aux, iters)
+            self.poses.append(poses)
         return poses
 
     @property
@@ -935,18 +987,19 @@ class SageICP:
 
     def trajectory(self) -> np.ndarray:
         """(N, 4, 4) poses; the poses held on the device come over in one
-        transfer."""
+        transfer. The `trajectory` span."""
         if not self.poses:
             return np.zeros((0, 4, 4))
-        held = [p.reshape(-1, 4, 4) for p in self.poses if torch.is_tensor(p)]
-        fetched = iter(torch.cat(held).cpu().numpy()) if held else None
-        out = []
-        for p in self.poses:
-            if torch.is_tensor(p):
-                out.extend(next(fetched) for _ in range(p.reshape(-1, 4, 4).shape[0]))
-            else:
-                out.append(np.asarray(p).reshape(4, 4))
-        return np.stack(out)
+        with _SPANS["trajectory"]:
+            held = [p.reshape(-1, 4, 4) for p in self.poses if torch.is_tensor(p)]
+            fetched = iter(torch.cat(held).cpu().numpy()) if held else None
+            out = []
+            for p in self.poses:
+                if torch.is_tensor(p):
+                    out.extend(next(fetched) for _ in range(p.reshape(-1, 4, 4).shape[0]))
+                else:
+                    out.append(np.asarray(p).reshape(4, 4))
+            return np.stack(out)
 
     def local_map(self) -> np.ndarray:
         pts, mask = hm.pointcloud(self.state.map, self.config.voxel_size_map)

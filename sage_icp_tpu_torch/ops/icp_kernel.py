@@ -23,7 +23,9 @@ The loop's state is two small device tensors, updated in place:
                                kernel | |x| of the last step | drift |
                                r_scan | 3 unused | est (4x4, the
                                reference mode's)
-    loop_i  int32 (LOOP_I,)    iterations | correspondences | status
+    loop_i  int32 (LOOP_I,)    iterations | correspondences | status |
+                               live rows of the current rows | live
+                               rows summed over the running steps
 
 status RUNNING lets the next GN iteration and step run; DONE (converged:
 |x| < 1e-4, or max_iterations reached) and REANCHOR (the increment has
@@ -49,12 +51,12 @@ from sage_icp_tpu_torch.ops import cuda_lib
 from sage_icp_tpu_torch.ops.constants import device_constant
 
 LOOP_F = 56
-LOOP_I = 4
+LOOP_I = 5
 F_ANCHOR = slice(0, 16)
 F_T = slice(16, 32)
 F_EST = slice(40, 56)
 F_MAX_CORR, F_KERNEL, F_NORM, F_DRIFT, F_R_SCAN = 32, 33, 34, 35, 36
-I_ITERATIONS, I_NCORR, I_STATUS = 0, 1, 2
+I_ITERATIONS, I_NCORR, I_STATUS, I_ROWS, I_LIVE_ROWS = 0, 1, 2, 3, 4
 RUNNING, DONE, REANCHOR = 0, 1, 2
 ESTIMATION_THRESHOLD = 1e-4  # the reference loop stops below this |x|
 
@@ -200,7 +202,7 @@ def icp_step_plain(sums, loop_f, loop_i, max_iterations: int, drift_lim: float) 
     status = torch.where(~more, DONE, torch.where(drift >= drift_lim, REANCHOR, RUNNING)).to(torch.int32)
     new_f = torch.cat([loop_f[F_ANCHOR], Tn.reshape(-1), loop_f[F_MAX_CORR:F_NORM], norm[None], drift[None],
                        loop_f[F_DRIFT + 1:]])
-    new_i = torch.stack([it, ncorr, status, loop_i[3]]).to(torch.int32)
+    new_i = torch.stack([it, ncorr, status, loop_i[I_ROWS], loop_i[I_LIVE_ROWS] + loop_i[I_ROWS]]).to(torch.int32)
     loop_f.copy_(torch.where(running, new_f, loop_f))
     loop_i.copy_(torch.where(running, new_i, loop_i))
 
@@ -217,6 +219,6 @@ def icp_ref_step_plain(JTJ, JTr, ncorr, loop_f, loop_i, max_iterations: int) -> 
                        loop_f[F_NORM + 1:F_EST.start], est.reshape(-1)])
     eye = torch.eye(4, dtype=loop_f.dtype, device=loop_f.device).reshape(-1)
     stopped = torch.cat([loop_f[:F_EST.start], eye])
-    new_i = torch.stack([it, ncorr.to(torch.int32), status, loop_i[3]]).to(torch.int32)
+    new_i = torch.stack([it, ncorr.to(torch.int32), status, loop_i[I_ROWS], loop_i[I_LIVE_ROWS]]).to(torch.int32)
     loop_f.copy_(torch.where(running, new_f, stopped))
     loop_i.copy_(torch.where(running, new_i, loop_i))

@@ -117,14 +117,16 @@ def fused_semantic_nn_plain(cx, cy, cz, cl, offx, offy, offz, queries, sem_th, s
     )
 
 
-def default_tile_map(used: torch.Tensor) -> torch.Tensor:
+def default_tile_map(used: torch.Tensor, live: torch.Tensor | None = None) -> torch.Tensor:
     """Live tiles map to themselves, tiles without a used slot to tile 0
-    (the JAX reference's dead-tile redirect)."""
-    R = used.shape[0]
+    (the JAX reference's dead-tile redirect). live: the (R,) bool rows
+    with a used slot, when the caller has them."""
+    live = used.ne(0).any(dim=1) if live is None else live
+    R = live.shape[0]
     n_tiles = -(-R // TILE_ROWS)
-    pad = torch.zeros((n_tiles * TILE_ROWS - R, used.shape[1]), dtype=used.dtype, device=used.device)
-    live = torch.cat([used, pad]).reshape(n_tiles, -1).ne(0).any(dim=1)
-    return torch.where(live, torch.arange(n_tiles, dtype=torch.int32, device=used.device), 0).to(torch.int32)
+    pad = torch.zeros((n_tiles * TILE_ROWS - R,), dtype=torch.bool, device=live.device)
+    tiles = torch.cat([live, pad]).reshape(n_tiles, TILE_ROWS).any(dim=1)
+    return torch.where(tiles, torch.arange(n_tiles, dtype=torch.int32, device=live.device), 0).to(torch.int32)
 
 
 def gn_load_bytes(M: int) -> int:

@@ -19,7 +19,10 @@ after each block; a stopped loop turns the rest of a block into no-op
 launches, so max_iterations holds exactly and the iteration and
 correspondence counts are those of a loop that tests every iteration.
 When the status asks for a re-anchor, the rows are rebuilt between two
-blocks, at T_icp @ anchor, on the device. IcpLoop exposes the pieces
+blocks, at T_icp @ anchor, on the device. Each row build counts its live
+rows (a used query slot) on the device, and each running step adds that
+count to the frame's live rows, the GN rows the loop ran
+(frozen_rows' live_rows; runtime/tracing.py reads it). IcpLoop exposes the pieces
 (its constructor, block, reanchor, result; status between them) that a
 captured step (models/pipeline.py::DeviceStep) records as CUDA graphs.
 
@@ -57,6 +60,7 @@ from sage_icp_tpu_torch.ops import icp_kernel as ik
 from sage_icp_tpu_torch.ops import nn_kernels
 from sage_icp_tpu_torch.ops.constants import device_scalar
 from sage_icp_tpu_torch.ops.scan import trunc_div
+from sage_icp_tpu_torch.runtime import tracing
 
 MAX_ITERATIONS = 500
 
@@ -119,14 +123,20 @@ class FrozenRows(NamedTuple):
     n_dropped: torch.Tensor  # 0-dim int32, of the whole setup
 
 
-def frozen_rows(setup: cf.CorrSetup, rows: tuple[int, int] | None = None) -> FrozenRows:
+def frozen_rows(setup: cf.CorrSetup, rows: tuple[int, int] | None = None,
+                live_rows: torch.Tensor | None = None) -> FrozenRows:
     """The setup's rows as the GN kernel reads them, and their tile map.
     rows (lo, hi): the setup holds only those rows of R (corr_setup's
     `rows`), whose row_rel is still every row's. Each plane is one
     contiguous block of R' rows of stride 2M, a multiple of the kernel's
-    load width, so every plane base stays aligned."""
+    load width, so every plane base stays aligned. live_rows (a 0-dim
+    int32 tensor): set to the rows with a used query slot, counted on
+    the device."""
     Rl = setup.q0.shape[0]
     lo, hi = (0, Rl) if rows is None else rows
+    live = setup.grid_used.any(dim=1)
+    if live_rows is not None:
+        torch.sum(live, dim=0, dtype=torch.int32, out=live_rows)
     used = setup.grid_used.to(torch.int32)
     return FrozenRows(
         planes=(setup.cxp, setup.cyp, setup.czp, setup.clp),
@@ -134,7 +144,7 @@ def frozen_rows(setup: cf.CorrSetup, rows: tuple[int, int] | None = None) -> Fro
         origin=setup.row_origin_abs,
         row_abs=(setup.row_rel[lo:hi] + setup.center[None, :]),
         used=used,
-        tile_map=nn_kernels.default_tile_map(used),
+        tile_map=nn_kernels.default_tile_map(used, live),
         n_dropped=setup.n_dropped,
     )
 
@@ -188,10 +198,11 @@ class IcpLoop:
         self.rows = self._rows_at(guess)
 
     def _rows_at(self, pose) -> FrozenRows:
-        """This rank's frozen rows with the queries at `pose`."""
+        """This rank's frozen rows with the queries at `pose`; their live
+        rows counted into the loop's state (icp_kernel.I_ROWS)."""
         setup = cf.corr_setup(self.map_state, self.tables, geo.transform_points(pose, self.frame), self.valid,
                               self.voxel_size, self.probe_depth, **self.fast_params, rows=self.row_span)
-        return frozen_rows(setup, self.row_span)
+        return frozen_rows(setup, self.row_span, self.loop_i[ik.I_ROWS])
 
     def _sums(self) -> torch.Tensor:
         f, rows = self.loop_f, self.rows
@@ -323,19 +334,24 @@ class RefLoop:
         return self.result()
 
 
+_WAIT = tracing.span("wait.status")
+
+
 def read_status(loop_i: torch.Tensor) -> int:
-    """A loop's status: the one read from the device, per block. The copy
-    and the event that waits for it are on the current stream of the
-    status's device (the stream the loop's launches went to)."""
+    """A loop's status: the one read from the device, per block (the
+    `wait.status` span). The copy and the event that waits for it are on
+    the current stream of the status's device (the stream the loop's
+    launches went to)."""
     s = loop_i[ik.I_STATUS]
-    if s.device.type == "cpu":
-        return int(s)
-    host = _pinned_status()
-    host.copy_(s, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(s.device))
-    done.synchronize()
-    return int(host)
+    with _WAIT:
+        if s.device.type == "cpu":
+            return int(s)
+        host = _pinned_status()
+        host.copy_(s, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(s.device))
+        done.synchronize()
+        return int(host)
 
 
 _status_host: list = []

@@ -24,7 +24,9 @@ gloo or on the CPU. The rank writes to --out:
                      were called with (a Python call each: every launch
                      of an eager step, but only the first frame's and the
                      captures' of a captured one), ms per frame after
-                     the first (frames under --profile left out), and
+                     the first (frames under --profile left out: the
+                     recorder's `frame` spans, runtime/tracing.py, each
+                     the scan's pad, the step and the pose fetch), and
                      with --profile N the device time of the last N frames
                      by kernel
 """
@@ -42,6 +44,7 @@ import torch
 
 from sage_icp_tpu_torch.ops import cuda_lib, nn_kernels, policy_kernel
 from sage_icp_tpu_torch.ops.scan import INVALID_COORD
+from sage_icp_tpu_torch.runtime import tracing
 
 # the wrappers of the row-sharded kernels; a call's rows are its first argument's
 SHARDED_WRAPPERS = ((nn_kernels, "fused_gn_iteration"), (policy_kernel, "apply_policy"),
@@ -141,6 +144,7 @@ def main(argv=None) -> dict:
             setattr(module, name, fn)
         dist.destroy_process_group()
 
+    frame_ms = [s.ns / 1e6 for s in tracing.RECORDER.read().spans_of([odom.drive]) if s.name == "frame"]
     os.makedirs(args.out, exist_ok=True)
     r = mesh.rank
     np.save(os.path.join(args.out, f"poses_{r}.npy"), odom.trajectory())
@@ -153,7 +157,7 @@ def main(argv=None) -> dict:
         aux_totals={f: float(v) for f, v in zip(totals._fields, totals)},
         overflow_total=int(totals.overflow_total()), icp_iterations=[int(i) for i in odom.icp_iters],
         launches=launches, kernel_rows={name: {str(k): v for k, v in c.items()} for name, c in rows.items()},
-        ms_per_frame=1e3 * float(np.mean(odom.timings[1:timed] or odom.timings[:timed])), profile=profiled,
+        ms_per_frame=float(np.mean(frame_ms[1:timed] or frame_ms[:timed])), profile=profiled,
     )
     with open(os.path.join(args.out, f"rank_{r}.json"), "w") as f:
         json.dump(report, f)

@@ -375,7 +375,8 @@ def test_icp_step_kernel_matches_plain(card):
     """The step kernel against its plain version bit for bit, from the
     same loop state, over seeded GN sums: a solve, a non-finite solve, a
     clamped one, a stop at max_iterations, a re-anchor request and a
-    launch on a stopped loop."""
+    launch on a stopped loop; a running step adds the live rows of the
+    current rows to the frame's (icp_kernel.I_LIVE_ROWS)."""
     from sage_icp_tpu_torch.ops import icp_kernel as ik
 
     args = gn_args(card, 40, 2, dead_from=256)
@@ -388,7 +389,7 @@ def test_icp_step_kernel_matches_plain(card):
             f[ik.F_ANCHOR] = tgeo.se3_exp(torch.tensor([3.0, -1.0, 0.2, 0.01, 0.02, 0.3])).reshape(-1).to(card)
             f[ik.F_T] = args[11].reshape(-1)
             f[ik.F_R_SCAN] = 40.0
-            i = torch.tensor([k, 0, status, 0], dtype=torch.int32, device=card)
+            i = torch.tensor([k, 0, status, 7 + k, 100], dtype=torch.int32, device=card)
             fp, ip = f.clone(), i.clone()
             ik.icp_step(s, f, i, max_it, drift_lim)
             ik.icp_step_plain(s, fp, ip, max_it, drift_lim)
@@ -418,7 +419,7 @@ def test_icp_ref_step_kernel_matches_plain(card):
         for max_it, status in ((500, 0), (1, 0), (500, 1)):
             f = loop.loop_f.clone()
             f[ik.F_T] = tgeo.se3_exp(torch.tensor([0.05, -0.02, 0.01, 0.004, -0.003, 0.006])).reshape(-1).to(card)
-            i = torch.tensor([k, 0, status, 0], dtype=torch.int32, device=card)
+            i = torch.tensor([k, 0, status, 7 + k, 100], dtype=torch.int32, device=card)
             fp, ip = f.clone(), i.clone()
             ik.icp_ref_step(A.contiguous(), b.contiguous(), ncorr, f, i, max_it)
             ik.icp_ref_step_plain(A, b, ncorr, fp, ip, max_it)

@@ -37,6 +37,7 @@ from sage_icp_tpu_torch.ops import cuda_lib
 from sage_icp_tpu_torch.ops import hashmap as thm
 from sage_icp_tpu_torch.ops import icp_kernel as ik
 from sage_icp_tpu_torch.ops import registration as treg
+from sage_icp_tpu_torch.runtime import tracing
 from sage_icp_tpu_torch.utils import synthetic
 from tests.test_torch_bench import TINY
 from tests.test_torch_cuda import gn_fixture, t
@@ -322,9 +323,13 @@ def captured_pieces_traffic(cfg, scans, monkeypatch, pieces) -> list:
 
     for name in ("item", "cpu", "numpy", "tolist", "__bool__", "__int__", "__float__", "__index__"):
         monkeypatch.setattr(torch.Tensor, name, refuse(name))
-    with HostTraffic() as traffic:
-        for piece in pieces:
-            getattr(step if piece in ("_prepare", "_finish") else step._loop, piece)()
+    tracing.RECORDER.begin_frame(step.clock)  # the pieces stamp a frame's row, as in DeviceStep.__call__
+    try:
+        with HostTraffic() as traffic:
+            for piece in pieces:
+                getattr(step if piece in ("_prepare", "_finish") else step._loop, piece)()
+    finally:
+        tracing.RECORDER.end_frame()
     monkeypatch.undo()
     return traffic.seen
 

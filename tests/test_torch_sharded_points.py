@@ -34,6 +34,7 @@ from sage_icp_tpu_torch.ops import nn_kernels
 from sage_icp_tpu_torch.ops import registration as treg
 from sage_icp_tpu_torch.ops import scan as tscan
 from sage_icp_tpu_torch.parallel import sharding as tsh
+from sage_icp_tpu_torch.runtime import tracing
 from sage_icp_tpu_torch.utils import synthetic
 from tests.test_torch_bench import TINY
 from tests.test_torch_cuda import gn_fixture, parked_moving_scan, t
@@ -358,9 +359,13 @@ def test_captured_sharded_pieces_read_nothing_on_the_host(fast, monkeypatch, tin
 
     def run_pieces(mesh):
         step = steps[mesh.rank]
-        with HostTraffic() as traffic:
-            for piece in pieces:
-                getattr(step if piece in ("_prepare", "_finish") else step._loop, piece)()
+        tracing.RECORDER.begin_frame(step.clock)  # the pieces stamp a frame's row, as in DeviceStep.__call__
+        try:
+            with HostTraffic() as traffic:
+                for piece in pieces:
+                    getattr(step if piece in ("_prepare", "_finish") else step._loop, piece)()
+        finally:
+            tracing.RECORDER.end_frame()
         return traffic.seen
 
     seen, _ = run_ranks(3, run_pieces, hub)
