@@ -9,8 +9,9 @@
 With --root, only the kernel times of the port checked out at DIR (the
 parent commit unpacked with `git archive`, say) are taken, at phase 3's
 shapes on phase 3's inputs and, when build/drive_rows.pt exists (phase 7
-writes it), on the kitti drive's own policy and radius-count rows, and
-printed as one JSON line; nothing is checked. Run it on both trees in one
+writes it), on the kitti drive's own policy and radius-count rows and
+its last frame's dynamic filter, and printed as one JSON line; nothing
+is checked. Run it on both trees in one
 call to compare them.
 
 Phases, each fatal on failure:
@@ -27,7 +28,8 @@ Phases, each fatal on failure:
      and the network run stage by stage, and at 2^18 on tied keys (no iota
      key) against the network, with its launches per call; the GN,
      policy and radius-count kernels on the two row halves of the kitti
-     shapes that phase 10's ranks take, against the call on all rows. Kernel, plain
+     shapes that phase 10's ranks take, against the call on all rows; the
+     min-diffusion bit for bit at its cap of 16,384 cells. Kernel, plain
      and library times are device times (time_ms: calls queued back to
      back behind a spacer kernel, CUDA events, the median of 5 batches of
      20);
@@ -46,15 +48,20 @@ Phases, each fatal on failure:
      search;
   6. the kitti path: SageICP(), the production kitti preset with its
      dynamic-vehicle filter, over the city world at density 1.3, 10
-     warm-up and 30 timed frames, with the same gates, and the radius
-     count launched once per frame;
+     warm-up and 30 timed frames, with the same gates, the radius count
+     and the min-diffusion launched once per frame; the recorder's two
+     filter counts over its frames (occupied vehicle cells, diffusion
+     rounds);
   7. on the kitti drive's last frame: vehicle points in, kept and
      removed; the filter on the card against the filter on the CPU; the
      bitonic sort of the filter's sort keys against torch.sort; the
      drive's own rows of the policy kernel (one map insert of the frame)
      and of the radius count (the filter of the frame), captured from
      their wrappers, each kernel against its plain version bit for bit,
-     the rows' shape and the kernel's time, saved to build/drive_rows.pt;
+     the rows' shape and the kernel's time, saved to build/drive_rows.pt
+     with the frame's filter input; the min-diffusion on the frame's
+     vehicle sort keys and at the cap, bit for bit, kernel and plain
+     times (its row of the kernel table);
   8. with --profile only: each path's host phases, device busy share and
      kernels (torch.profiler) on five further frames, the port's own
      kernels listed apart; the deskew path's too (after phase 9), and
@@ -105,7 +112,7 @@ Phases, each fatal on failure:
      rank's ms/frame beside one card's on both paths, and the scan head
      timed on two ranks (head_timing: whole against split and gathered,
      deskew off and on, bit for bit); with --profile, rank 0's device ms
-     by kernel over the last 5 frames at one card and two, the pooling
+     by kernel over the last 5 frames at one card and two, the diffusion
      and the gathers summed. With one card it prints that 10c did not
      run and why. Every rank process is killed after TWO_RANKS_TIMEOUT_S:
      ranks out of step wait on each other rather than fail. 10a also
@@ -170,8 +177,9 @@ Phases, each fatal on failure:
      filter off) at blocks of 2 iterations, so that frames run more
      pieces than a row keeps. After every piece the frame's row is read
      back; each stamp's time is taken from it, and the frame's stamps
-     replayed through tracing.stamp_row with those times must give every
-     row read, and the recorder's record, exactly. The live rows equal
+     replayed through tracing.stamp_row with those times (and the
+     min-diffusion's two counts from the row after prepare) must give
+     every row read, and the recorder's record, exactly. The live rows equal
      the loop's count (icp_kernel.I_LIVE_ROWS), the card's frame counter
      the frames begun, and the stamps launched those the pieces make; a
      step that raises (a wrong-shaped input) leaves no frame, and the
@@ -209,7 +217,8 @@ SORT_NS = (2**16, 2**18)  # bitonic checks; the kitti scan's keys pad to 2^18
 GN_SUM_RTOL = 1e-4
 # the __global__ functions of sage_icp_tpu_torch/csrc, as the profiler names them
 PORT_KERNELS = ("semantic_nn_kernel", "gn_iteration_kernel", "retention_policy_kernel", "radius_count_kernel",
-                "icp_step_kernel", "bitonic_tile_kernel", "bitonic_global_kernel", "stage_clock_kernel")
+                "icp_step_kernel", "bitonic_tile_kernel", "bitonic_global_kernel", "stage_clock_kernel",
+                "min_diffusion_kernel")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DRIVE_ROWS = os.path.join(ROOT, "build", "drive_rows.pt")
 MULTI_RANK_DIR = os.path.join(ROOT, "build", "multi_rank")
@@ -605,6 +614,13 @@ def check_kernels(dev):
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lambda: sort_library(planes)))
     for name, r in rows.items():
         print_row(name, r)
+    from sage_icp_tpu_torch.models.pipeline import PRESETS
+    from sage_icp_tpu_torch.ops import dynamic_filter as dyn
+
+    nx = dyn._grid_nx(PRESETS["kitti"].label_max_range)
+    check_diffusion(cap_keys(nx, dev), nx)
+    print("kernel min_diffusion at the cap (16,384 cells): bit-exact against its plain version (timed in phase 7)",
+          flush=True)
     return rows
 
 
@@ -651,6 +667,13 @@ def time_tree(dev) -> dict:
         basic = rows["basic"]
         record("apply_policy kitti drive rows", lambda: policy_kernel.apply_policy(*pargs, basic=basic))
         record("radius_count kitti drive rows", lambda: nn_kernels.radius_count(*rargs))
+        if "filter" in rows:
+            from sage_icp_tpu_torch.models.pipeline import PRESETS
+            from sage_icp_tpu_torch.ops import dynamic_filter as dyn
+
+            fpts, fok = to(rows["filter"])
+            record("filter_dynamic_vehicles kitti drive frame",
+                   lambda: dyn.filter_dynamic_vehicles(fpts, fok, PRESETS["kitti"]))
     return times
 
 
@@ -681,9 +704,9 @@ def expect_launches(name, launches, iterations, frames, prepares, reference: boo
     """The ICP step kernel in whole blocks of BLOCK_ITERATIONS (at least
     one block a frame, enough slots for the `iterations` the frames
     took), GN once per ICP step, the policy once a frame (the insert),
-    the radius count once per prepare (the filter: once a frame, and once
-    more in each of IcpTimer's replays), the NN and sort kernels not at
-    all. With `reference` (fast correspondences off) the reference step
+    the radius count and the min-diffusion once per prepare (the filter:
+    once a frame, and once more in each of IcpTimer's replays), the NN
+    and sort kernels not at all. With `reference` (fast correspondences off) the reference step
     kernel in whole blocks of REF_BLOCK_ITERATIONS takes the ICP step's
     place, and neither GN nor the ICP step runs. Every count is the
     kernels' own, read from the card."""
@@ -697,7 +720,8 @@ def expect_launches(name, launches, iterations, frames, prepares, reference: boo
              f"{iterations} iterations")
     frozen = 0 if reference else slots
     expect = dict(fused_gn_iteration=frozen, icp_step=frozen, icp_ref_step=slots if reference else 0,
-                  apply_policy=frames, radius_count=prepares, fused_semantic_nn=0, bitonic_sort_planes=0)
+                  apply_policy=frames, radius_count=prepares, min_diffusion=prepares, fused_semantic_nn=0,
+                  bitonic_sort_planes=0)
     for kernel, count in expect.items():
         if launches[kernel] != count:
             fail(f"{name}: {kernel} launched {launches[kernel]} times, expected {count}")
@@ -815,12 +839,13 @@ def capture(module, name: str, fn):
     return result, seen[0]
 
 
-def drive_rows(odom, buf, rargs) -> None:
+def drive_rows(odom, buf, rargs, filter_args) -> None:
     """Phase 7's drive rows: the policy kernel's arguments from one map
     insert of the scan in `buf` (as profile runs it, the state held
     fixed) and the radius count's `rargs` from the frame's filter. Each
     kernel against its plain version bit for bit, the rows' shape, the
-    kernel's time; the arguments go to DRIVE_ROWS for --root."""
+    kernel's time; the arguments go to DRIVE_ROWS for --root, with the
+    frame's filter input (filter_args: points and valid mask)."""
     from sage_icp_tpu_torch.models import pipeline as pl
     from sage_icp_tpu_torch.ops import geometry as geo
     from sage_icp_tpu_torch.ops import hashmap as hm
@@ -868,7 +893,8 @@ def drive_rows(odom, buf, rargs) -> None:
           f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
     os.makedirs(os.path.dirname(DRIVE_ROWS), exist_ok=True)
     cpu = lambda args: [a.cpu() if torch.is_tensor(a) else a for a in args]
-    torch.save({"apply_policy": cpu(pargs), "basic": basic, "radius_count": cpu(rargs)}, DRIVE_ROWS)
+    torch.save({"apply_policy": cpu(pargs), "basic": basic, "radius_count": cpu(rargs),
+                "filter": cpu(filter_args)}, DRIVE_ROWS)
 
 
 def kitti_checks(odom, scan):
@@ -878,8 +904,10 @@ def kitti_checks(odom, scan):
     points and overflow bit for bit); the sort kernel on the filter's
     vehicle sort keys (cell id, or 2^30 for other points, then the
     position as an iota key, padded to 2^18 with sentinel keys) against
-    torch.sort(stable=True); the drive's own kernel rows (drive_rows).
-    Returns the sort kernel's launches there."""
+    torch.sort(stable=True); the drive's own kernel rows (drive_rows) and
+    the min-diffusion's (diffusion_row, on the frame's vehicle sort keys).
+    Returns the sort kernel's launches there and the min-diffusion's row
+    of the kernel table."""
     from sage_icp_tpu_torch.ops import cuda_lib, nn_kernels
     from sage_icp_tpu_torch.ops import dynamic_filter as dyn
     from sage_icp_tpu_torch.ops import scan as scan_ops
@@ -891,7 +919,8 @@ def kitti_checks(odom, scan):
     buf = buf.to(dev)
     pts, ok = scan_ops.preprocess(buf, buf[:, 0] < 1.0e6, cfg.max_range, cfg.min_range, cfg.label_max_range)
 
-    card, (rargs, _) = capture(nn_kernels, "radius_count", lambda: dyn.filter_dynamic_vehicles(pts, ok, cfg))
+    (card, (rargs, _)), ((vk, nx, _), _) = capture(dyn, "cluster_ids", lambda: capture(
+        nn_kernels, "radius_count", lambda: dyn.filter_dynamic_vehicles(pts, ok, cfg)))
     cpu = dyn.filter_dynamic_vehicles(pts.cpu(), ok.cpu(), cfg)
     same = all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
     veh_key, _, vehicle = dyn.class_sort_keys(pts, ok, cfg)
@@ -921,8 +950,69 @@ def kitti_checks(odom, scan):
           f"{time_ms(lambda: sort_kernel.bitonic_sort_planes((key, pos), 2)):.4f} ms in "
           f"{sort_kernel.bitonic_launches(n, 2)} launches, torch.sort "
           f"{time_ms(lambda: torch.sort(key, stable=True)):.4f} ms", flush=True)
-    drive_rows(odom, buf, rargs)
-    return launches
+    drive_rows(odom, buf, rargs, (pts, ok))
+    return launches, diffusion_row(vk, nx)
+
+
+def filter_counts(odom) -> None:
+    """Phase 6's two filter counts from the recorder, over the drive's
+    frames: the occupied vehicle cells and the min-diffusion's rounds that
+    changed an id (24: the round cut may bind)."""
+    from sage_icp_tpu_torch.runtime import tracing as tr
+
+    frames = tr.RECORDER.read().frames_of([odom.drive])
+    cells = np.array([f.vehicle_cells for f in frames])
+    rounds = np.array([f.diffusion_rounds for f in frames])
+    if len(frames) == 0 or cells.max() <= 0:
+        fail(f"phase 6: the recorder counted no occupied vehicle cell over {len(frames)} frames")
+    print(f"phase 6 filter counts over {len(frames)} frames: occupied vehicle cells min {cells.min()} median "
+          f"{int(np.median(cells))} max {cells.max()}; diffusion rounds min {rounds.min()} median "
+          f"{int(np.median(rounds))} max {rounds.max()}, {int((rounds == 24).sum())} frames at 24", flush=True)
+
+
+def cap_keys(nx: int, dev):
+    """The vehicle sort keys of 16,384 distinct cells, the filter's cap: a
+    solid 32 x 32 x 16 block, one blob wider than the 24 rounds reach."""
+    from sage_icp_tpu_torch.ops import dynamic_filter as dyn
+
+    x, y, z = np.meshgrid(np.arange(88, 120), np.arange(88, 120), np.arange(8, 24), indexing="ij")
+    return torch.from_numpy(np.sort(((x * nx + y) * dyn._GRID_NZ + z).ravel()).astype(np.int32)).to(dev)
+
+
+def check_diffusion(vk, nx: int) -> float:
+    """The min-diffusion kernel against its plain version on the card, bit
+    for bit; returns the largest |difference| (0)."""
+    from sage_icp_tpu_torch.ops import dynamic_filter as dyn
+
+    got, want = dyn.cluster_ids(vk, nx), dyn.cluster_ids_plain(vk, nx)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"min_diffusion is not bit-exact against its plain version on {int((vk != dyn._BIG).sum())} rows")
+    return max_abs_diff((got,), (want,))
+
+
+def diffusion_row(vk, nx: int) -> dict:
+    """The min-diffusion's row of the kernel table: bit for bit against the
+    plain version and timed on the kitti drive's last frame (vk, its
+    vehicle sort keys) and at the cap (cap_keys). Bound: the keys read and
+    the ids written once (the cells' data, a few hundred KB), over
+    3.35 TB/s; the launch and the rounds' barriers are the floor."""
+    from sage_icp_tpu_torch.ops import dynamic_filter as dyn
+
+    err, cells = check_diffusion(vk, nx), int(torch.unique(vk[vk != dyn._BIG]).numel())
+    cap = cap_keys(nx, vk.device)
+    err = max(err, check_diffusion(cap, nx))
+    b_ms, b_by = bound(vk.numel() * (4 + 8), 0)
+    row = dict(route="cuda", source="sage_icp_tpu_torch/csrc/min_diffusion.cu",
+               replaces="none (the pooling of sage_icp_tpu/ops/dynamic_filter.py:211-219)", max_abs_err=err,
+               ms=time_ms(lambda: dyn.cluster_ids(vk, nx)), plain_ms=time_ms(lambda: dyn.cluster_ids_plain(vk, nx)),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None, cells=cells,
+               cap_ms=time_ms(lambda: dyn.cluster_ids(cap, nx)),
+               cap_plain_ms=time_ms(lambda: dyn.cluster_ids_plain(cap, nx)))
+    print(f"min_diffusion on the kitti drive's last frame ({cells} occupied cells) and at the cap (16,384): "
+          f"bit-exact; kernel {row['ms']:.4f} / {row['cap_ms']:.4f} ms, plain {row['plain_ms']:.4f} / "
+          f"{row['cap_plain_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by})", flush=True)
+    return row
 
 
 def profile(name, odom, scans, tss=None) -> tuple[float, dict]:
@@ -1497,12 +1587,13 @@ def head_phase(cards: int) -> dict:
 
 def stage_ms(kernels: dict) -> dict:
     """Device ms a frame by stage, from a profile's kernel names: the
-    filter's pooling (max_pool3d), PyTorch's gathers (index and gather
-    kernels: the row setup's, the filter's and the insert's) and NCCL's
-    collectives (whose kernels spin while a peer is late)."""
+    filter's min-diffusion (min_diffusion_kernel), PyTorch's gathers
+    (index and gather kernels: the row setup's, the filter's and the
+    insert's) and NCCL's collectives (whose kernels spin while a peer is
+    late)."""
     nccl = {k: v for k, v in kernels.items() if "nccl" in k.lower()}
     pick = lambda *keys: sum(v for k, v in kernels.items() if k not in nccl and any(x in k for x in keys))  # noqa
-    return dict(pooling=pick("max_pool3d"), gathers=pick("index", "gather"), nccl=sum(nccl.values()))
+    return dict(diffusion=pick("min_diffusion_kernel"), gathers=pick("index", "gather"), nccl=sum(nccl.values()))
 
 
 def multi_rank_phase(scans, traj, gt, dev, ref_traj, profile_scans=None) -> None:
@@ -2261,7 +2352,7 @@ def clock_drive(label: str, config, scans, block: int, fail_at: int | None = Non
     if int(ring.counter) != ring.begun:
         fail(f"phase 16, {label}: the card's frame counter {int(ring.counter)}, the frames begun {ring.begun}")
     filtered = config.dynamic_vehicle_filter
-    err, stamps, most, replay, last = 0, 0, 0, {}, {}
+    err, stamps, most, replay, last, cells = 0, 0, 0, {}, {}, 0
     for fid, seq, name, row, live in reads:
         ops = piece_stamps(name, filtered)
         stamps += len(ops)
@@ -2269,6 +2360,9 @@ def clock_drive(label: str, config, scans, block: int, fail_at: int | None = Non
         want = replay.setdefault(fid, np.zeros(tr.SLOTS, dtype=np.int64))
         for (op, slot), t in zip(ops, stamp_times(ops, before, row)):
             tr.stamp_row(want, op, slot, t, seq, live)
+        if name == "prepare" and filtered:  # the min-diffusion's counts, written between the stamps
+            want[tr.VEHICLE_CELLS], want[tr.DIFFUSION_ROUNDS] = row[tr.VEHICLE_CELLS], row[tr.DIFFUSION_ROUNDS]
+            cells = max(cells, int(row[tr.VEHICLE_CELLS]))
         err = max(err, int(np.abs(want - row).max()))
         if not np.array_equal(want, row):
             fail(f"phase 16, {label}: frame {fid}'s row after {name} differs from its replay: card {row.tolist()}, "
@@ -2279,11 +2373,12 @@ def clock_drive(label: str, config, scans, block: int, fail_at: int | None = Non
             if f is None or live != f.live_rows or f.live_rows != int(row[tr.LIVE_ROWS]):
                 fail(f"phase 16, {label}: frame {fid}'s live rows {None if f is None else f.live_rows}, the loop's "
                      f"count {live}")
-            got = (f.stages_ns, f.first_ns, f.last_ns, f.pieces_run, f.pieces)
+            got = (f.stages_ns, f.first_ns, f.last_ns, f.pieces_run, f.pieces, f.vehicle_cells, f.diffusion_rounds)
             n = int(want[tr.PIECES])
             exp = ({k: int(want[v]) for k, v in tr.STAGES.items()}, int(want[tr.FIRST]), int(want[tr.LAST]), n,
                    [(int(want[tr.PIECE0 + 2 * i]), int(want[tr.PIECE0 + 2 * i + 1]))
-                    for i in range(min(n, tr.MAX_PIECES))])
+                    for i in range(min(n, tr.MAX_PIECES))], int(want[tr.VEHICLE_CELLS]),
+                   int(want[tr.DIFFUSION_ROUNDS]))
             if got != exp:
                 fail(f"phase 16, {label}: frame {fid}'s record {got} differs from its replay {exp}")
             if n <= tr.MAX_PIECES and f.device_ns != sum(b - a for a, b in f.pieces):
@@ -2292,6 +2387,8 @@ def clock_drive(label: str, config, scans, block: int, fail_at: int | None = Non
             most = max(most, n)
     if stamps_launched != stamps:
         fail(f"phase 16, {label}: {stamps_launched} stage_clock launches, the pieces make {stamps}")
+    if filtered and cells == 0:
+        fail(f"phase 16, {label}: no frame's row counted an occupied vehicle cell")
     pieces = [f.pieces_run for f in frames.values()]
     print(f"phase 16, {label}: {len(frames)} captured frames at blocks of {block}, pieces a frame {pieces}, "
           f"{stamps} stamps; every row read back equal to its replay, records and live rows equal"
@@ -2402,7 +2499,9 @@ def main() -> int:
         fail("SageICP() is not the kitti preset with its dynamic filter")
     kitti_scans, launches, kitti_gt, kitti_rng = drive("kitti", kitti, 1.3, WARMUP, FRAMES, extra)
     kitti_traj, kitti_map = kitti.trajectory(), kitti.state.map
-    sort_launches = kitti_checks(kitti, kitti_scans[n - 1])
+    filter_counts(kitti)
+    sort_launches, rows["min_diffusion"] = kitti_checks(kitti, kitti_scans[n - 1])
+    print_row("min_diffusion", rows["min_diffusion"])
     rows["stage_clock"] = stage_clock_phase(kitti_scans, dev)
     print_row("stage_clock", rows["stage_clock"])
     deskew_odom, skewed, tss, deskew_kernel_ms = runtime_phase(kitti_scans, dev)

@@ -17,6 +17,9 @@
 //   10 runs              pieces the frame ran (a graph replay, or an eager piece)
 //   11 .. 26             (start, end) of each piece; past kMaxRuns pieces the
 //                        last pair holds the latest piece
+//   27 vehicle_cells, 28 diffusion_rounds
+//                        the dynamic filter's counts, written by its
+//                        min-diffusion (csrc/min_diffusion.cu); 0 without it
 //
 // Ops: BEGIN opens the frame and its first piece (the row zeroed); START
 // opens a piece; SPLIT ends a stage (slot) and starts the next inside a
@@ -36,7 +39,7 @@ namespace {
 
 constexpr int kSeq = 0, kFirst = 1, kLast = 2, kMark = 3, kLiveRows = 9, kRuns = 10, kRun0 = 11;
 constexpr int kMaxRuns = 8;
-constexpr int kSlots = kRun0 + 2 * kMaxRuns;
+constexpr int kSlots = kRun0 + 2 * kMaxRuns + 2;
 constexpr int kBegin = 0, kStart = 1, kSplit = 2, kClose = 3, kEndFrame = 4;
 
 __device__ __forceinline__ long long global_ns() {
@@ -80,7 +83,7 @@ __global__ void stage_clock_kernel(long long* __restrict__ ring, long long* __re
 
 }  // namespace
 
-// ring: (capacity, 27) int64 rows; frame: one int64, the frame counter;
+// ring: (capacity, 29) int64 rows; frame: one int64, the frame counter;
 // slot: the stage of SPLIT / CLOSE / END_FRAME; value: one int32 or null.
 // All device pointers. One launch of one thread.
 extern "C" int sage_stage_clock(void* ring, void* frame, int capacity, int op, int slot, const void* value,

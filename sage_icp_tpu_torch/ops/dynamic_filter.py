@@ -4,7 +4,9 @@ The reference's PCL pipeline (cpp/sage_icp/core/Preprocessing.cpp:95-172)
 on dense 0.5 m grids, as the JAX package computes it:
 
   * vehicle-class points cluster by 27-connectivity of their 0.5 m cells:
-    24 rounds of 3x3x3 min-label diffusion over the dense grid;
+    24 rounds of 3x3x3 min-label diffusion (cluster_ids): on the card one
+    kernel over the occupied cells (csrc/min_diffusion.cu), on the CPU
+    the dense grid's pooling;
   * each clustered point counts the landmark-class (parking/sidewalk
     44/48) points within 0.5 m, searched among the landmark points stored
     for the 27 neighbouring cells (32 per cell), by the radius_count
@@ -22,9 +24,9 @@ _LMK_VOXEL_CAP are dropped, as in the JAX package, which counts them
 nowhere; the port returns their number beside the overflow (the
 pipeline keeps it out of StepAux, whose fields are JAX's).
 
-The min-diffusion pools cell ids in float32, exact while the grid holds
-fewer than 2^24 cells: label_max_range up to 179 m (every preset uses
-50 m). A larger range is refused.
+The plain min-diffusion pools cell ids in float32, exact while the grid
+holds fewer than 2^24 cells: label_max_range up to 179 m (every preset
+uses 50 m). A larger range is refused, on the card too.
 
 Every capacity and every decision here is the JAX module's, bit for bit:
 keep mask and overflow agree with it.
@@ -32,15 +34,17 @@ keep mask and overflow agree with it.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
 import torch
 
+from sage_icp_tpu_torch.ops import cuda_lib, nn_kernels
 from sage_icp_tpu_torch.ops import hashmap as hm
-from sage_icp_tpu_torch.ops import nn_kernels
 from sage_icp_tpu_torch.ops.constants import device_constant
 from sage_icp_tpu_torch.ops.scan import INVALID_COORD, label_in_set, trunc_div
+from sage_icp_tpu_torch.runtime import tracing
 
 CLUSTER_TOLERANCE = 0.5  # reference Preprocessing.cpp:133
 MIN_CLUSTER_SIZE = 5  # reference Preprocessing.cpp:134
@@ -58,6 +62,9 @@ _GRID_NZ = 32  # z cells: 16 m span around the sensor plane
 
 _BIG = 2**30  # sort key of non-members; empty cell of the component grid
 _SENT = 1.0e9  # coordinate of an invalid landmark lane: fails any radius test
+
+_MD_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
+    [ctypes.c_void_p] * 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -129,6 +136,49 @@ def _window(xyz, head_pos, width: int):
     return xyz[idx]
 
 
+def cluster_ids(vk, nx: int, mesh=None):
+    """The cluster id of each row of the vehicle sort, (mv,) int64: for a
+    member (vk its cell, ascending; _BIG past the members) the smallest
+    cell id that _CC_ITERS rounds of 3x3x3 min-diffusion over the occupied
+    cells of the (nx, nx, _GRID_NZ) grid bring to its cell; G = nx * nx *
+    _GRID_NZ past the members. On a CUDA tensor one launch of
+    csrc/min_diffusion.cu over the occupied cells, whole on every rank of
+    a mesh; on the CPU the dense pooling (cluster_ids_plain). Either
+    writes the frame's occupied cells and the rounds that changed an id
+    into the recorder's row (runtime/tracing.py)."""
+    if cuda_lib.on_cpu(vk):
+        return cluster_ids_plain(vk, nx, mesh)
+    mv = vk.shape[0]
+    cuda_lib.check_cuda("vk", vk, torch.int32, (mv,))
+    if mv > _VEH_PTS_CAP:
+        raise ValueError(f"cluster_ids: {mv} sorted rows; the kernel's ranks take {_VEH_PTS_CAP}")
+    dev = vk.device
+    out = torch.empty((mv,), dtype=torch.int64, device=dev)
+    ring = tracing.RECORDER.frame_ring(dev)
+    rows, counter = (None, None) if ring is None else (cuda_lib.ptr(ring.rows), cuda_lib.ptr(ring.counter))
+    capacity = 1 if ring is None else ring.rows.shape[0]
+    fn = cuda_lib.function("min_diffusion.cu", "sage_min_diffusion", _MD_ARGTYPES)
+    p = cuda_lib.ptr
+    cuda_lib.call("min_diffusion", fn, dev, p(vk), mv, nx, _GRID_NZ, _BIG, _CC_ITERS, p(out), rows, counter,
+                  capacity, tracing.SLOTS, tracing.VEHICLE_CELLS, tracing.DIFFUSION_ROUNDS)
+    return out
+
+
+def cluster_ids_plain(vk, nx: int, mesh=None):
+    """cluster_ids by the dense grid: each segment head of vk seeds its
+    cell with its own id, _min_diffusion pools the grid, every row reads
+    its cell."""
+    G = nx * nx * _GRID_NZ
+    live = vk != _BIG
+    head = live.clone()
+    head[1:] &= vk[1:] != vk[:-1]
+    comp0 = torch.full((G + 1,), _BIG, dtype=torch.int32, device=vk.device)
+    comp0.scatter_reduce_(0, torch.where(head, vk, G).long(), torch.where(head, vk, _BIG), "amin",
+                          include_self=True)
+    comp = _min_diffusion(comp0[:G], nx, mesh)
+    return torch.where(live, comp[torch.clamp(vk, max=G - 1).long()], G).long()
+
+
 def _min_diffusion(comp0, nx: int, mesh=None):
     """The 27-connected components of the occupied cells of the (nx, nx,
     _GRID_NZ) grid of seed ids comp0 (G,) int32 (_BIG = empty): _CC_ITERS
@@ -138,10 +188,15 @@ def _min_diffusion(comp0, nx: int, mesh=None):
     2^30 is of min.
 
     mesh: each rank pools its contiguous x-slab of planes (row_range over
-    nx) and _CC_ITERS more planes on each inner side. A round moves a
-    value one plane, so after _CC_ITERS rounds the slab's own planes hold
-    exactly what the whole grid's do; they are all-gathered in rank order
-    (gather_rows) into the whole grid."""
+    nx) and _CC_ITERS more planes on each inner side, all _CC_ITERS rounds.
+    A round moves a value one plane, so after every round the slab's own
+    planes hold exactly what the whole grid's do; they are all-gathered in
+    rank order (gather_rows) into the whole grid.
+
+    On the CPU it writes the grid's occupied cells and the last round that
+    changed a value of its own planes into the recorder's frame row (with
+    a mesh that round is the rank's, at most the whole grid's), as tensors:
+    nothing is read back."""
     lo, hi = 0, nx
     s0, s1 = 0, nx
     if mesh is not None:
@@ -150,9 +205,16 @@ def _min_diffusion(comp0, nx: int, mesh=None):
     slab = comp0.reshape(nx, nx * _GRID_NZ)[s0:s1].reshape(1, 1, s1 - s0, nx, _GRID_NZ)
     occ = slab != _BIG
     neg = -slab.to(torch.float32)
-    for _ in range(_CC_ITERS):
+    own = slice(lo - s0, hi - s0)
+    rounds = torch.zeros((), dtype=torch.int64, device=comp0.device)
+    for r in range(_CC_ITERS):
         pooled = torch.nn.functional.max_pool3d(neg, 3, stride=1, padding=1)
-        neg = torch.where(occ, torch.maximum(neg, pooled), -float(_BIG))
+        new = torch.where(occ, torch.maximum(neg, pooled), -float(_BIG))
+        changed = (new[:, :, own] != neg[:, :, own]).any()
+        rounds = torch.maximum(rounds, changed * (r + 1))
+        neg = new
+    if comp0.device.type == "cpu":
+        tracing.RECORDER.count_diffusion((comp0 != _BIG).sum(), rounds)
     comp = (-neg).to(torch.int32).reshape(s1 - s0, nx * _GRID_NZ)
     if mesh is not None:
         comp = mesh.gather_rows(mesh.pad_share(comp, lo - s0, hi - s0, nx), nx)
@@ -166,14 +228,15 @@ def filter_dynamic_vehicles(points, valid, config, mesh=None):
     landmark cells beyond _LMK_VOXEL_CAP, whose points no radius count
     sees; both 0-dim int32.
 
-    mesh (parallel.sharding.Mesh): the ranks split the two costly stages
-    and all-gather their results in rank order: the min-diffusion by
-    x-slabs of the grid (_min_diffusion), and the VR query rows (their
+    mesh (parallel.sharding.Mesh): the ranks split the VR query rows (their
     landmark lookup, candidate planes and radius count) by row_range, each
-    rank's share padded to ceil(VR / n) rows. The class sorts, the
-    landmark table, the cluster sizes and totals and the verdict stay
-    whole on every rank, and so equal the unsharded filter's bit for bit
-    (the counts are integers)."""
+    rank's share padded to ceil(VR / n) rows, and all-gather the counts in
+    rank order. The min-diffusion runs whole on every rank on the card (a
+    few tens of microseconds: nothing to split) and by x-slabs of the
+    grid on the CPU (_min_diffusion). The class sorts, the landmark table,
+    the cluster sizes and totals and the verdict stay whole on every rank,
+    and so equal the unsharded filter's bit for bit (the counts are
+    integers)."""
     dev = points.device
     n = points.shape[0]
     nx = _grid_nx(float(config.label_max_range))
@@ -207,15 +270,9 @@ def filter_dynamic_vehicles(points, valid, config, mesh=None):
     mv = vk.shape[0]
     posv = torch.arange(mv, device=dev)
 
-    # ---- connected components on the dense occupancy grid ---------------
-    # seed = own linear cell id; 27-connectivity min-diffusion
-    comp0 = torch.full((G + 1,), _BIG, dtype=torch.int32, device=dev)
-    comp0.scatter_reduce_(0, torch.where(v_head, vk, G).long(), torch.where(v_head, vk, _BIG),
-                          "amin", include_self=True)
-    comp_flat = _min_diffusion(comp0[:G], nx, mesh)
-
-    # per-point cluster id + cluster sizes (ids are grid cells)
-    pcomp = torch.where(vlive, comp_flat[torch.clamp(vk, max=G - 1).long()], G).long()
+    # ---- connected components: per-point cluster id + cluster sizes ------
+    # (ids are grid cells)
+    pcomp = cluster_ids(vk, nx, mesh)
     sizes = torch.zeros((G + 1,), dtype=torch.int32, device=dev)
     sizes.index_add_(0, pcomp, torch.ones_like(pcomp, dtype=torch.int32))
 

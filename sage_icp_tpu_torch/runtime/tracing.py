@@ -50,7 +50,12 @@ the device's idle time. The frame's last stamp also copies the GN
 live-row count of the frame: a live row has a used query slot, each row
 build (prepare, reanchor) counts its live rows on the device, and each
 running ICP step (after its GN launch) adds that count
-(ops/registration.py, csrc/icp_step.cu).
+(ops/registration.py, csrc/icp_step.cu). The dynamic filter's
+min-diffusion writes two counts into the row itself (on the card the
+kernel csrc/min_diffusion.cu, on the CPU dynamic_filter._min_diffusion):
+the frame's occupied vehicle cells and the rounds that changed a cluster
+id (at most 24: 24 says the round cut may bind); both 0 with the filter
+off.
 
 Reading. RECORDER.read() copies each device's ring to the host in one
 transfer (it waits for the device) and returns a Snapshot: the frames'
@@ -82,7 +87,9 @@ SEQ, FIRST, LAST, MARK = 0, 1, 2, 3
 HEAD, FILTER, DOWNSAMPLE, ICP, UPDATE = 4, 5, 6, 7, 8
 LIVE_ROWS, PIECES, PIECE0 = 9, 10, 11
 MAX_PIECES = 8
-SLOTS = PIECE0 + 2 * MAX_PIECES
+VEHICLE_CELLS = PIECE0 + 2 * MAX_PIECES
+DIFFUSION_ROUNDS = VEHICLE_CELLS + 1
+SLOTS = DIFFUSION_ROUNDS + 1
 STAGES = {"head": HEAD, "filter": FILTER, "downsample": DOWNSAMPLE, "icp": ICP, "update": UPDATE}
 BEGIN, START, SPLIT, CLOSE, END_FRAME = range(5)
 
@@ -138,6 +145,8 @@ class FrameRecord:
     pieces: list  # (start_ns, end_ns) of each piece kept
     pieces_run: int  # pieces the frame ran (more than MAX_PIECES: the middle ones were not kept)
     live_rows: int | None
+    vehicle_cells: int | None  # the filter's occupied vehicle cells (0 with the filter off)
+    diffusion_rounds: int | None  # its min-diffusion's rounds that changed an id
     spans: list  # the frame's host spans
 
     @property
@@ -194,11 +203,11 @@ class Snapshot:
 
 
 class _Frame:
-    __slots__ = ("id", "drive", "ring", "seq", "row", "live", "closed", "ended")
+    __slots__ = ("id", "drive", "ring", "seq", "row", "live", "counts", "closed", "ended")
 
     def __init__(self, fid, drive, ring, seq, row):
         self.id, self.drive, self.ring, self.seq, self.row = fid, drive, ring, seq, row
-        self.live, self.closed, self.ended = None, False, False
+        self.live, self.counts, self.closed, self.ended = None, None, False, False
 
 
 class _DeviceRing:
@@ -316,6 +325,24 @@ class Recorder:
         self._local.stack.current = frame
         return fid
 
+    def frame_ring(self, device) -> _DeviceRing | None:
+        """The ring of the frame this thread steps, when the frame is on
+        `device`'s ring; None outside a frame or for a frame elsewhere. A
+        kernel writes into the row its frame counter chooses."""
+        frame = self._local.stack.current
+        if frame is None or frame.ring is None or frame.ring.device != device:
+            return None
+        return frame.ring
+
+    def count_diffusion(self, cells: torch.Tensor, rounds: torch.Tensor) -> None:
+        """The filter's two counts (module docstring, 0-dim CPU tensors)
+        for the frame this thread steps on the CPU, kept beside its row
+        until it is read. A frame on a card takes them from the card's
+        kernel: nothing is kept for it, nor outside a frame."""
+        frame = self._local.stack.current
+        if frame is not None and (frame.ring is None or frame.ring.rows.device.type == "cpu"):
+            frame.counts = (cells, rounds)
+
     def close_frame(self) -> None:
         """The frame's last stamp (END_FRAME) is launched: the device's
         frame counter moves on past it."""
@@ -349,6 +376,9 @@ class Recorder:
             else:
                 row = rows[f.ring][f.seq % self.capacity]
                 live = int(row[LIVE_ROWS])
+            if f.counts is not None:
+                row = row.copy()
+                row[VEHICLE_CELLS], row[DIFFUSION_ROUNDS] = (int(c) for c in f.counts)
             n = int(row[PIECES]) if int(row[SEQ]) == f.seq else 0
             kept = min(n, MAX_PIECES)
             records.append(FrameRecord(
@@ -357,6 +387,8 @@ class Recorder:
                 first_ns=int(row[FIRST]) if n else None, last_ns=int(row[LAST]) if n else None,
                 pieces=[(int(row[PIECE0 + 2 * i]), int(row[PIECE0 + 2 * i + 1])) for i in range(kept)],
                 pieces_run=n, live_rows=live if n else None,
+                vehicle_cells=int(row[VEHICLE_CELLS]) if n else None,
+                diffusion_rounds=int(row[DIFFUSION_ROUNDS]) if n else None,
                 spans=[s for s in by_frame.get(f.id, []) if s.drive == f.drive]))
         return Snapshot(records, spans)
 

@@ -17,7 +17,8 @@ sort) bit for bit; the GN kernel in one launch and deterministic, its
 inputs read from device memory, a no-op on a stopped status; the ICP step
 kernel bit for bit; the captured step equal to the eager one bit for bit;
 the
-filter's keep mask and overflow bit for bit; the GN sums within 1e-5 of
+filter's keep mask and overflow bit for bit; the min-diffusion kernel
+bit for bit, with its two recorder counts equal to a numpy replay's; the GN sums within 1e-5 of
 the sum of their terms' magnitudes (only the summation order differs);
 poses within 1e-4 of the CPU run; the golden trajectory within
 0.02 m / 0.02; the maneuver ATE below 0.30 m and re-lock after a garbage
@@ -36,6 +37,7 @@ The seeded input builders here are shared with tests/test_torch_kernels.py
 and tests/test_torch_dynfilter.py.
 """
 
+import itertools
 import pathlib
 
 import numpy as np
@@ -50,6 +52,7 @@ from sage_icp_tpu_torch.ops import geometry as tgeo
 from sage_icp_tpu_torch.ops import hashmap as thm
 from sage_icp_tpu_torch.ops import registration as treg
 from sage_icp_tpu_torch.ops import scan as tscan
+from sage_icp_tpu_torch.runtime import tracing
 from sage_icp_tpu_torch.utils import synthetic
 
 VOXEL = 1.0
@@ -268,6 +271,86 @@ def city_frame(world, frame=11, crop=None):
     if crop is not None:
         scan = scan[(np.abs(scan[:, 0]) < crop[0]) & (np.abs(scan[:, 1]) < crop[1])]
     return scan
+
+
+def car_row_scan(cap=16384, cells=45):
+    """Parked cars bumper to bumper over a parking lot: one label-10 point
+    at the centre of each 0.5 m cell of a row `cells` long in x and two
+    wide, at z 0.3 m, the lot (44) below. The row is one 27-connected blob
+    longer than the filter's 24 diffusion rounds reach: a cell 25 or more
+    cells from the row's start keeps the id of the cell 24 back, so the
+    cut leaves cells - 24 ids, and each id past the first holds two points,
+    too few for a cluster: the filter keeps the first 25 cells' points
+    and removes the rest."""
+    rng = np.random.default_rng(11)
+    i, j = np.meshgrid(np.arange(cells), np.arange(2), indexing="ij")
+    car = np.stack([5.25 + 0.5 * i.ravel(), 4.25 + 0.5 * j.ravel(), np.full(i.size, 0.3), np.full(i.size, 10.0)], 1)
+    n = 60 * cells
+    lot = np.stack([rng.uniform(5.0, 5.0 + 0.5 * cells, n), rng.uniform(3.8, 5.2, n), rng.uniform(-0.05, 0.2, n),
+                    np.full(n, 44.0)], 1)
+    return pad_scan(np.concatenate([car, lot]).astype(np.float32), cap)
+
+
+def vehicle_keys(buf, valid, cfg):
+    """The filter's vehicle sort keys (its `vk`) of a scan buffer,
+    preprocessed as the step does, on the buffer's device."""
+    pts, ok = tscan.preprocess(buf, valid, cfg.max_range, cfg.min_range, cfg.label_max_range)
+    veh_key, _, _ = tdyn.class_sort_keys(pts, ok, cfg)
+    return tdyn._sort_class(pts, veh_key, tdyn._VEH_PTS_CAP)[0]
+
+
+def diffusion_replay(vk, nx, rounds=tdyn._CC_ITERS, nz=tdyn._GRID_NZ):
+    """The filter's min-diffusion written out in numpy on the occupied
+    cells alone: each cell (a distinct member key of vk) takes the minimum
+    of its own id and its occupied 26 neighbours' ids of the round before,
+    for `rounds` rounds or to the first round that changes nothing.
+    Returns (each row's cluster id, nx * nx * nz past the members; the
+    occupied cells; the rounds that changed an id)."""
+    vk = np.asarray(vk, np.int64)
+    live = vk != tdyn._BIG
+    cells = np.unique(vk[live])
+    val = cells.copy()
+    xyz = np.stack([cells // (nz * nx), cells // nz % nx, cells % nz], 1)
+    nbrs = []
+    for off in itertools.product((-1, 0, 1), repeat=3):
+        q = xyz + off
+        lin = (q[:, 0] * nx + q[:, 1]) * nz + q[:, 2]
+        at = np.minimum(np.searchsorted(cells, lin), len(cells) - 1)
+        ok = ((q >= 0) & (q < (nx, nx, nz))).all(1) & (cells[at] == lin) & any(off)
+        nbrs.append((np.nonzero(ok)[0], at[ok]))
+    done = 0
+    for r in range(rounds):
+        new = val.copy()
+        for dst, src in nbrs:
+            new[dst] = np.minimum(new[dst], val[src])
+        if np.array_equal(new, val):
+            break
+        val, done = new, r + 1
+    out = np.full(len(vk), nx * nx * nz, np.int64)
+    out[live] = val[np.searchsorted(cells, vk[live])]
+    return out, len(cells), done
+
+
+def recorded(device, fn):
+    """fn() as the one frame of a fresh recorder on `device` (standing in
+    for tracing.RECORDER meanwhile), between the stage clock's first and
+    last stamp. Returns (fn's result, the frame's record)."""
+    rec, process_wide = tracing.Recorder(frames=4), tracing.RECORDER
+    tracing.RECORDER = rec
+    try:
+        clock = tracing.StageClock(rec, torch.device(device))
+        rec.begin_frame(clock)
+        try:
+            clock.begin()
+            out = fn()
+            clock.end_frame(tracing.UPDATE)
+            rec.close_frame()
+        finally:
+            rec.end_frame()
+    finally:
+        tracing.RECORDER = process_wide
+    (frame,) = rec.read().frames
+    return out, frame
 
 
 @pytest.fixture
@@ -824,6 +907,71 @@ def test_dynamic_filter_on_card_matches_cpu(card):
     assert torch.equal(out[1][1], out[0][1])
     assert torch.equal(out[1][0], out[0][0])
     assert int(out[1][2]) == int(out[0][2])
+
+
+def diffusion_case(name):
+    """(vk on the CPU, nx) of a case of the min-diffusion test: the
+    filter's vehicle sort keys of a scan, or keys written out."""
+    cfg = tpl.PRESETS[name] if name in tpl.PRESETS else tpl.PRESETS["kitti"]
+    nx = tdyn._grid_nx(cfg.label_max_range)
+    vk = torch.full((tdyn._VEH_PTS_CAP,), tdyn._BIG, dtype=torch.int32)
+    if name == "one":  # three points in one cell
+        vk[:3] = (100 * nx + 100) * tdyn._GRID_NZ + 16
+    elif name == "cap":  # a solid 32 x 32 x 16 block: 16,384 distinct cells
+        x, y, z = np.meshgrid(np.arange(88, 120), np.arange(88, 120), np.arange(8, 24), indexing="ij")
+        vk = torch.from_numpy(np.sort(((x * nx + y) * tdyn._GRID_NZ + z).ravel()).astype(np.int32))
+    elif name != "empty":
+        scan = {"parked_moving": parked_moving_scan, "car_row": car_row_scan}.get(name)
+        buf, valid = scan() if scan else pad_scan(city_frame(kitti_world()), cfg.scan_capacity)
+        vk = vehicle_keys(t(buf), t(valid), cfg)
+    return vk, nx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empty", "one", "parked_moving", "car_row", "cap", "kitti360", "kitti_raw",
+                                  "kitti_drive"])
+def test_min_diffusion_kernel_matches_plain(card, case):
+    """The min-diffusion kernel (csrc/min_diffusion.cu) against the dense
+    plain version bit for bit in one launch, and its two counts in the
+    recorder's frame row against diffusion_replay: no vehicle cell, one
+    cell, the parked and moving cars, a row longer than the round cut,
+    16,384 distinct cells, the city frame at the kitti360 and kitti_raw
+    presets. On the kitti drive (SageICP()) it runs once a frame, no
+    max_pool3d kernel runs, and every frame's counts are the replay's."""
+    if case == "kitti_drive":
+        world = kitti_world()
+        gt = synthetic.make_trajectory(4, step=1.0)
+        rng = np.random.default_rng(0)
+        scans = [synthetic.render_scan(*world, gt[i], rng, n_target=120_000) for i in range(4)]
+        odom = tpl.SageICP()
+        cuda_lib.reset_launches()
+        for s in scans[:3]:
+            odom.register_frame(s)
+        assert cuda_lib.launches()["min_diffusion"] == 3
+        names = device_kernels(lambda: odom.register_frame(scans[3]))  # three more frames of the last scan
+        assert any("min_diffusion_kernel" in n for n in names) and not any("max_pool3d" in n for n in names)
+        frames = tracing.RECORDER.read().frames_of([odom.drive])
+        nx = tdyn._grid_nx(odom.config.label_max_range)
+        assert len(frames) == 6
+        for f, s in zip(frames, scans[:3] + [scans[3]] * 3):
+            pts, valid, _ = tpl._split_packed(torch.from_numpy(odom.pad_chunk([s])[0]))
+            _, cells, rounds = diffusion_replay(vehicle_keys(pts, valid, odom.config).numpy(), nx)
+            assert (f.vehicle_cells, f.diffusion_rounds) == (cells, rounds) and cells > 0
+        return
+    vk, nx = diffusion_case(case)
+    want = tdyn.cluster_ids_plain(vk, nx)
+    replay, cells, rounds = diffusion_replay(vk.numpy(), nx)
+    assert np.array_equal(want.numpy(), replay)
+    cuda_lib.reset_launches()
+    got, record = recorded(card, lambda: tdyn.cluster_ids(vk.to(card), nx))
+    assert torch.equal(got.cpu(), want) and cuda_lib.launches()["min_diffusion"] == 1
+    assert (record.vehicle_cells, record.diffusion_rounds) == (cells, rounds)
+    ids = np.unique(replay[replay < nx * nx * tdyn._GRID_NZ])
+    expect = dict(empty=(0, 0, 0), one=(1, 0, 1), car_row=(90, 24, 21), cap=(16384, 24, None))
+    if case in expect:
+        assert (cells, rounds, None if case == "cap" else len(ids)) == expect[case]
+    else:
+        assert cells > 1 and rounds > 0
 
 
 @pytest.mark.cuda

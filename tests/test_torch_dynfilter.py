@@ -27,8 +27,8 @@ from sage_icp_tpu_torch.ops import dynamic_filter as tdyn
 from sage_icp_tpu_torch.ops import nn_kernels, sort_kernel
 from sage_icp_tpu_torch.ops import scan as tscan
 from tests.test_robustness import small_config
-from tests.test_torch_cuda import (city_frame, crowded_cell_scan, kitti_world, pad_scan, parked_moving_scan,
-                                   radius_edge_rows, radius_rows, sort_planes, t)
+from tests.test_torch_cuda import (car_row_scan, city_frame, crowded_cell_scan, kitti_world, pad_scan,
+                                   parked_moving_scan, radius_edge_rows, radius_rows, sort_planes, t, vehicle_keys)
 
 CAP = 16384
 VEHICLE = (10, 11, 13, 15, 16, 18, 20)
@@ -194,6 +194,38 @@ def test_filter_matches_jax_slot_overflow():
     buf, valid = crowded_cell_scan(CAP)
     _, overflow, _ = run_both(buf, valid)
     assert overflow >= 12 + 5
+
+
+def test_filter_matches_jax_on_a_row_past_the_round_cut():
+    """car_row_scan: parked cars bumper to bumper over 45 cells, one blob
+    longer than the 24 diffusion rounds reach. The port's cluster ids of
+    the vehicle rows equal those of JAX's 24 rounds of reduce_window (as
+    sage_icp_tpu/ops/dynamic_filter.py runs them) on the same occupied
+    cells: 21 ids, not one. The keep mask and overflow equal JAX's filter:
+    the first 25 cells' points are kept, the rest, clusters of two
+    points, removed."""
+    buf, valid = car_row_scan(CAP)
+    keep, overflow, _ = run_both(buf, valid)
+    cfg = tpl.PRESETS["kitti"]
+    nx, nz = tdyn._grid_nx(cfg.label_max_range), tdyn._GRID_NZ
+    vk = vehicle_keys(t(buf), t(valid), cfg)
+    got = tdyn.cluster_ids(vk, nx).numpy()
+    cells = np.unique(vk.numpy()[vk.numpy() != tdyn._BIG])
+    big = np.int32(2**30)
+    comp = jnp.full((nx * nx * nz,), big, jnp.int32).at[jnp.asarray(cells)].set(jnp.asarray(cells, jnp.int32))
+    occ = (comp != big).reshape(nx, nx, nz)
+
+    def diffuse(_, c):
+        pooled = jax.lax.reduce_window(c, big, jax.lax.min, (3, 3, 3), (1, 1, 1), "SAME")
+        return jnp.where(occ, jnp.minimum(c, pooled), big)
+
+    want = np.asarray(jax.lax.fori_loop(0, jdyn._CC_ITERS, diffuse, comp.reshape(nx, nx, nz))).reshape(-1)
+    live = vk.numpy() != tdyn._BIG
+    np.testing.assert_array_equal(got[live], want[vk.numpy()[live]])
+    assert len(cells) == 90 and len(np.unique(got[live])) == 21
+    car = (buf[:, 3] == 10) & valid
+    cell_x = np.floor((buf[:, 0] - 5.0) / 0.5)
+    assert keep[car & (cell_x < 25)].all() and not keep[car & (cell_x >= 25)].any() and overflow == 0
 
 
 def landmark_lattice_scan(cap=CAP, side=70):

@@ -15,6 +15,7 @@ import torch
 
 from sage_icp_tpu_torch.models import pipeline as tpl
 from sage_icp_tpu_torch.ops import cuda_lib
+from sage_icp_tpu_torch.ops import dynamic_filter as tdyn
 from sage_icp_tpu_torch.ops import geometry as tgeo
 from sage_icp_tpu_torch.ops import hashmap as thm
 from sage_icp_tpu_torch.ops import icp_kernel as ik
@@ -149,6 +150,42 @@ def test_the_rings_wrap_at_their_capacity():
         rec.close_frame()
         rec.end_frame()
     assert [f.frame for f in rec.read().frames] == [6, 7, 8, 9]
+
+
+@pytest.mark.parametrize("scene", ["parked_moving", "car_row", "drive"])
+def test_filter_counts_equal_a_host_replay(scene, request):
+    """The min-diffusion's two counts in a frame's row, the occupied
+    vehicle cells and the rounds that changed an id, against
+    diffusion_replay of the frame's vehicle sort keys: the filter alone in
+    a frame at the kitti preset (the car row's rounds reach the cut), and
+    the CPU drive's frames (the filter at a 10 m label range)."""
+    # imported here: the card's run of this file (--noconftest) imports
+    # no other test module
+    from tests.test_torch_cuda import car_row_scan, diffusion_replay, parked_moving_scan, recorded, vehicle_keys
+
+    if scene == "drive":
+        odom, snap = request.getfixturevalue("drive")
+        cfg = odom.config
+        frames = snap.frames_of([odom.drive])
+        scans = scans_of(5)
+        assert len(frames) == len(scans)
+        seen = []
+        for f, s in zip(frames, scans):
+            pts, valid, _ = tpl._split_packed(torch.from_numpy(odom.pad_chunk([s])[0]))
+            _, cells, rounds = diffusion_replay(vehicle_keys(pts, valid, cfg).numpy(),
+                                                tdyn._grid_nx(cfg.label_max_range))
+            assert (f.vehicle_cells, f.diffusion_rounds) == (cells, rounds)
+            seen.append(cells)
+        assert max(seen) > 0
+        return
+    cfg = tpl.PRESETS["kitti"]
+    buf, valid = parked_moving_scan() if scene == "parked_moving" else car_row_scan()
+    _, record = recorded("cpu", lambda: tdyn.filter_dynamic_vehicles(torch.from_numpy(buf), torch.from_numpy(valid),
+                                                                      cfg))
+    pts, ok = torch.from_numpy(buf), torch.from_numpy(valid)
+    _, cells, rounds = diffusion_replay(vehicle_keys(pts, ok, cfg).numpy(), tdyn._grid_nx(cfg.label_max_range))
+    assert (record.vehicle_cells, record.diffusion_rounds) == (cells, rounds)
+    assert cells > 0 and (rounds == tdyn._CC_ITERS) == (scene == "car_row")
 
 
 def test_a_step_that_raises_leaves_the_next_frame_its_own_row(monkeypatch):
