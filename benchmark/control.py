@@ -33,20 +33,17 @@ def control_numbers(cell, seed: int, device) -> dict:
     from benchmark import scenes, traffic, verdict
     from benchmark.reference import odometry as reference
 
-    scene = cell.config["scene"]
-    pts, labels = scenes.build_city_world(seed=scene["world_seed"], size=scene["world_size"], block=scene["block"],
-                                          density=scene["density"])
-    gt = scenes.make_trajectory(cell.config["drive_frames"], step=scene["step_m"])
-    scans = scenes.render_drives(pts, labels, gt, seed, 1, scene["points_target"], scene["max_range"],
-                                 scene["noise"], device)[0]
+    _, drives, times = scenes.cell_scenes(cell.config, seed, 1, device)
+    scans = drives[0]
+    stamps = times[0] if times is not None else [None] * len(scans)
     with reference.precision(tf32=True):
         ctl = reference.Reference(cell.sage, device)
-        for s in scans:
-            ctl.register(s)
+        for s, ts in zip(scans, stamps):
+            ctl.register(s, ts)
     with reference.precision(tf32=False):
         ref = reference.Reference(cell.sage, device)
-        for s, pose in zip(scans, ctl.poses):
-            ref.register(s, follow=pose)
+        for s, ts, pose in zip(scans, stamps, ctl.poses):
+            ref.register(s, ts, follow=pose)
     totals = {f: sum(c[f] for c in ctl.counters) for f in reference.DROP_COUNTERS}
     drive = traffic.Drive(0, len(scans), np.stack(ctl.poses), totals,
                           sum(c["landmark_cells_dropped"] for c in ctl.counters),

@@ -2,15 +2,15 @@
 
 The step, as upstream sageICP.cpp orders it:
 
-    preprocess -> dynamic vehicle filter (when configured) -> double
-    class-adaptive voxel downsample -> adaptive threshold ->
-    constant-velocity prediction -> semantic ICP -> solve health guard
-    -> map insert -> distance cull
+    deskew (when configured, from the third pose on) -> preprocess ->
+    dynamic vehicle filter (when configured) -> double class-adaptive
+    voxel downsample -> adaptive threshold -> constant-velocity
+    prediction -> semantic ICP -> solve health guard -> map insert ->
+    distance cull
 
 on fixed-capacity tensors of one device, eagerly, with every setting
 read from the configuration's dict (the SageConfig fields of the
-benchmark's configuration file). Deskew is not covered: Reference
-refuses a configuration with it on."""
+benchmark's configuration file)."""
 
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from . import correspondence as corr
+from . import deskew as dsk
 from . import dynamic_filter as dyn
 from . import icp
 from . import voxel_map as vm
@@ -32,6 +33,7 @@ DROP_COUNTERS = ("corr_dropped", "ds_truncated", "insert_unique_overflow", "inse
                  "insert_incoming_truncated", "dynfilter_overflow", "nonfinite_pose", "icp_rejected", "icp_forced")
 QSCAN_SCALE = 1.0 / 256.0
 QSCAN_INVALID = 32767
+QTS_SCALE = 32767.0  # the int16 upload's unit of a point time: 1 / (2^15 - 1)
 
 
 @contextlib.contextmanager
@@ -73,16 +75,20 @@ def fast_params(cfg: dict) -> dict | None:
                 overflow_rows=cfg["corr_overflow_rows"]) if ok else None
 
 
-def step(state: State, points, valid, cfg: dict, follow: torch.Tensor | None = None):
+def step(state: State, points, valid, cfg: dict, follow: torch.Tensor | None = None, timestamps=None):
     """(state, (cap, 4) scan rows, (cap,) valid) -> (state', pose, aux:
     {counter: 0-dim tensor}, live rows of each GN iteration run).
 
     follow: a (4, 4) pose that the state moves on with in place of the
     step's own: the map takes the frame at it, and the poses and the
     threshold's model deviation carry it; the step's own pose is still
-    the one returned."""
+    the one returned. timestamps: (cap,) sweep phases, read with deskew
+    on."""
     dev = points.device
     eye = torch.eye(4, dtype=torch.float32, device=dev)
+    if cfg["deskew"]:
+        moved = dsk.deskew(points, timestamps, state.prev_pose, state.last_pose)
+        points = torch.where(state.num_poses > 2, moved, points)
     cropped, crop_valid = preprocess(points, valid, cfg["max_range"], cfg["min_range"], cfg["label_max_range"])
     dyn_overflow = lmk_dropped = torch.zeros((), dtype=torch.int32, device=dev)
     if cfg["dynamic_vehicle_filter"]:
@@ -159,10 +165,13 @@ def step(state: State, points, valid, cfg: dict, follow: torch.Tensor | None = N
     return new_state, own_pose, aux, live_rows
 
 
-def pad_scan(scan: np.ndarray, cfg: dict, device):
+def pad_scan(scan: np.ndarray, cfg: dict, device, timestamps=None):
     """The scan as the step takes it: (cap, 4) rows, the rest invalid;
     with quantized_scan_upload the coordinates rounded to 1/256 m as the
-    int16 upload carries them. Returns (points, valid)."""
+    int16 upload carries them. With deskew on, a timestamp lane beside
+    them: the given point times, or without them the azimuth's phase,
+    0 on invalid rows (with the int16 upload, rounded to 1/32767).
+    Returns (points, valid, timestamps or None)."""
     cap = cfg["scan_capacity"]
     n = min(len(scan), cap)
     rows = np.asarray(scan[:n, :4], dtype=np.float32)
@@ -174,7 +183,16 @@ def pad_scan(scan: np.ndarray, cfg: dict, device):
     else:
         pts[:n] = torch.from_numpy(rows)
     valid = torch.arange(cap) < n
-    return pts.to(device), valid.to(device)
+    lane = None
+    if cfg["deskew"]:
+        ts = dsk.azimuth_phase(rows[:, :3]) if timestamps is None else torch.as_tensor(
+            np.asarray(timestamps[:n], dtype=np.float32))
+        if cfg["quantized_scan_upload"]:
+            ts = torch.clamp(torch.round(ts * QTS_SCALE), 0, QTS_SCALE) / QTS_SCALE
+        lane = torch.zeros(cap, dtype=torch.float32)
+        lane[:n] = ts
+        lane = lane.to(device)
+    return pts.to(device), valid.to(device), lane
 
 
 class Reference:
@@ -188,22 +206,24 @@ class Reference:
     the step starts from the state that the followed poses of the earlier
     frames built (the map holding each frame at its followed pose), and
     its own pose for this frame is returned; the state then moves on with
-    the followed pose (step's `follow`)."""
+    the followed pose (step's `follow`). With deskew on, a frame is
+    deskewed with the state's two last poses, the followed ones when it
+    follows; register(scan, timestamps) gives its points' sweep phases
+    (without them, the azimuth's phase stands in)."""
 
     def __init__(self, cfg: dict, device):
-        if cfg.get("deskew"):
-            raise ValueError("the reference step does not cover deskew")
         self.cfg, self.device = cfg, torch.device(device)
         self.state = init_state(cfg, self.device)
         self.poses: list[np.ndarray] = []
         self.counters: list[dict] = []
         self.live_rows: list[list[int]] = []
 
-    def register(self, scan: np.ndarray, follow: np.ndarray | None = None) -> np.ndarray:
-        pts, valid = pad_scan(scan, self.cfg, self.device)
+    def register(self, scan: np.ndarray, timestamps: np.ndarray | None = None,
+                 follow: np.ndarray | None = None) -> np.ndarray:
+        pts, valid, stamps = pad_scan(scan, self.cfg, self.device, timestamps)
         if follow is not None:
             follow = torch.as_tensor(np.asarray(follow, dtype=np.float32), device=self.device)
-        self.state, pose, aux, live_rows = step(self.state, pts, valid, self.cfg, follow)
+        self.state, pose, aux, live_rows = step(self.state, pts, valid, self.cfg, follow, stamps)
         self.counters.append({k: int(v) for k, v in aux.items()})
         self.live_rows.append(live_rows)
         self.poses.append(pose.cpu().numpy())

@@ -9,8 +9,9 @@ From the root of a checkout. In order:
  2. the scenes: the configuration's city world (its seed is the
     configuration's) and trajectory, and the labelled scans of the
     configuration's number of drives along it, rendered on the card with
-    the sensor's draws from --seed (scenes.py); one drive, drawn from
-    --seed, is the one the reference checks;
+    the sensor's draws from --seed, swept with each point's time where
+    the scene says "sweep" (scenes.py); one drive, drawn from --seed, is
+    the one the reference checks;
  3. set-up: one SageICP of the configuration, and one whole drive of the
     cell's traffic through it, which builds the kernels (nvcc, into
     build/torch_kernels/ of the checkout, on the checkout's first run)
@@ -25,8 +26,9 @@ From the root of a checkout. In order:
     end-to-end metrics from the host clock;
  5. the peak of the card's memory, then the program freed;
  6. the plain reference (benchmark/reference/, no kernel and nothing of
-    the program) over the checked drive's scans on the card, in full
-    float32, following the program's poses of it one step at a time,
+    the program) over the checked drive's scans, and their point times
+    when the configuration deskews, on the card, in full float32,
+    following the program's poses of it one step at a time,
     and the comparison that decides `correct` (verdict.py): every run of
     the checked drive in the window, and the map after its first run,
     each number printed beside its limit as the last lines of standard
@@ -134,12 +136,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
     cfg, scene = cell.sage, cell.config["scene"]
     config = sage_config(cfg)
 
-    pts, labels = scenes.build_city_world(seed=scene["world_seed"], size=scene["world_size"], block=scene["block"],
-                                          density=scene["density"])
-    gt = scenes.make_trajectory(cell.config["drive_frames"], step=scene["step_m"])
-    drives = scenes.render_drives(pts, labels, gt, seed, scene["drives"], scene["points_target"], scene["max_range"],
-                                  scene["noise"], device)
-    del pts, labels
+    gt, drives, times = scenes.cell_scenes(cell.config, seed, scene["drives"], device)
     # the drive whose answers the reference checks: the window's first
     sample = int(np.random.default_rng(seed).integers(len(drives)))
     order = [(sample + i) % len(drives) for i in range(len(drives))]
@@ -148,7 +145,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
     odom = pl.SageICP(config, device=device)
-    driver = traffic.Driver(odom, drives, cell.traffic, devtrace.span if trace else None)
+    driver = traffic.Driver(odom, drives, cell.traffic, devtrace.span if trace else None, times)
     driver.drive(sample)  # builds the kernels, captures the graphs
     sync()
     setup_s = time.perf_counter() - t_start
@@ -175,8 +172,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
     checked = [d for d in window.drives if d.index == sample]
     with reference.precision(tf32=False):
         ref = reference.Reference(cfg, device)
-        for scan, pose in zip(drives[sample], checked[0].poses):
-            ref.register(scan, follow=pose)
+        stamps = times[sample] if times is not None else [None] * len(drives[sample])
+        for scan, ts, pose in zip(drives[sample], stamps, checked[0].poses):
+            ref.register(scan, ts, follow=pose)
         values = verdict.numbers(cell, checked, [t.to(device) for t in kept["map"]], ref)
     ref_s = time.perf_counter() - t_ref
     correct, checks = verdict.judge(values, cell.limits)

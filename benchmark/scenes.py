@@ -12,12 +12,20 @@ generator seeded by the run's seed (the same seed gives the same scans on
 the same card and software), each drive its own draws. The scans come
 back to the host as (n, 4) float32 rows [x y z label], as the KITTI
 format hands them over.
+
+A scene with "sweep": true makes each scan a spinning sensor's: the scan
+rendered at the frame's pose as above, with the same draws, then moved
+point by point to where a sensor sweeping through the frame's motion
+measured it (sweep_scans), each point's sweep phase kept as its time.
+cell_scenes renders a configuration's scene either way.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from benchmark.reference.deskew import azimuth_phase, deskew
 
 # semantic-KITTI ids (upstream ros/launch/semantic-kitti.yaml)
 ROAD, PARKING, SIDEWALK = 40, 44, 48
@@ -359,3 +367,41 @@ def render_drives(world_pts: np.ndarray, world_labels: np.ndarray, poses: np.nda
             xyz = local[keep] + noise * torch.randn((len(keep), 3), generator=gen, dtype=torch.float64, device=dev)
             drive.append(torch.cat([xyz.to(torch.float32), labs[keep].to(torch.float32)[:, None]], dim=1))
     return [[s.cpu().numpy() for s in drive] for drive in drives]
+
+
+def sweep_scans(scans: list, poses: np.ndarray, device) -> tuple:
+    """A drive's mid-sweep scans [frame] -> (n, 4) float32, as a sensor
+    that sweeps through each frame's motion at constant velocity measures
+    them. The HDL-64E spins clockwise, so a point's sweep phase is
+    t = (pi - atan2(y, x)) / (2 pi) (KISS-ICP's KITTI loader's convention),
+    and it was measured from the pose exp((t - 0.5) delta_k) relative to
+    mid-sweep, delta_k = log(poses[k-1]^-1 poses[k]) (0 for the first
+    frame): its raw coordinates are exp((0.5 - t) delta_k) p, the
+    reference's deskew with the two poses swapped, here in float64 on
+    `device` (the model of the port's utils/synthetic.skew_scan). Draws
+    nothing. Returns (raw scans, times [frame] -> (n,) float32 t)."""
+    raw, times = [], []
+    for k, scan in enumerate(scans):
+        t = azimuth_phase(scan[:, :3])
+        finish = torch.from_numpy(poses[k]).to(device, torch.float64)
+        start = torch.from_numpy(poses[max(k - 1, 0)]).to(device, torch.float64)
+        moved = deskew(torch.from_numpy(scan).to(device, torch.float64), t.to(device), finish, start)
+        raw.append(moved.to(torch.float32).cpu().numpy())
+        times.append(t.numpy())
+    return raw, times
+
+
+def cell_scenes(config: dict, seed: int, n_drives: int, device):
+    """A configuration's scene: (its ground-truth poses, n_drives drives
+    rendered from `seed`, their point times, or None where the scene has
+    no "sweep")."""
+    scene = config["scene"]
+    pts, labels = build_city_world(seed=scene["world_seed"], size=scene["world_size"], block=scene["block"],
+                                   density=scene["density"])
+    gt = make_trajectory(config["drive_frames"], step=scene["step_m"])
+    drives = render_drives(pts, labels, gt, seed, n_drives, scene["points_target"], scene["max_range"],
+                           scene["noise"], device)
+    if not scene.get("sweep", False):
+        return gt, drives, None
+    swept = [sweep_scans(drive, gt, device) for drive in drives]
+    return gt, [d for d, _ in swept], [t for _, t in swept]

@@ -57,8 +57,9 @@ def test_a_new_configuration_mix_and_metric_are_found_by_name(tiny_root):
 
 @pytest.mark.parametrize("trace", [0, 1])
 @pytest.mark.parametrize("traffic", ["stream", "offline"])
-def test_a_cpu_rehearsal_prints_the_contract_keys_last(tiny_root, traffic, trace, capsys):
-    cell = cells.load(tiny_root, f"tiny.{traffic}", tiny_root / "benchmark")
+@pytest.mark.parametrize("config", ["tiny", "tiny_deskew"])
+def test_a_cpu_rehearsal_prints_the_contract_keys_last(tiny_root, config, traffic, trace, capsys):
+    cell = cells.load(tiny_root, f"{config}.{traffic}", tiny_root / "benchmark")
     result = run.run_cell(cell, 2**31 + 1234, 2.0, bool(trace), "cpu")
     line = run.result_line(result)
     out = json.loads(line)

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import ast
 import dataclasses
+import json
 import sys
 from pathlib import Path
 
@@ -12,9 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import run
+from benchmark import run, verdict
 from benchmark.reference import odometry as reference
-from benchmark.scenes import build_city_world, make_trajectory, render_drives
+from benchmark.scenes import build_city_world, make_trajectory, render_drives, sweep_scans
 from sage_icp_tpu_torch.models import pipeline as pl
 
 BENCH = Path(__file__).resolve().parents[1]
@@ -71,25 +72,44 @@ def scans():
     return render_drives(pts, labels, make_trajectory(4), 11, 1, 6000, 60.0, 0.01, "cpu")[0]
 
 
-@pytest.mark.parametrize("variant", ["plain", "filter", "int16_upload", "search_every_iteration"])
-def test_the_reference_agrees_with_the_ports_cpu_step(scans, variant):
+@pytest.fixture(scope="module")
+def swept():
+    """Six swept scans and their point times: frames 3 to 5 are deskewed."""
+    pts, labels = build_city_world(seed=3, size=160.0, density=0.5)
+    gt = make_trajectory(6)
+    return sweep_scans(render_drives(pts, labels, gt, 11, 1, 6000, 60.0, 0.01, "cpu")[0], gt, "cpu")
+
+
+@pytest.mark.parametrize("variant", ["plain", "filter", "int16_upload", "search_every_iteration", "deskew"])
+def test_the_reference_agrees_with_the_ports_cpu_step(scans, swept, variant):
     """Both are plain PyTorch on the CPU: poses, counters and the map
-    agree bit for bit, free-running and following the port's poses."""
+    agree bit for bit, free-running and following the port's poses. The
+    reference's deskew is its own, not a copy of the port's, so on swept
+    scans with their times the two agree within the kitti cells' limits
+    on the poses and the map, with the same counters."""
     extra = dict(plain={}, filter=dict(dynamic_vehicle_filter=True, label_max_range=10.0),
                  int16_upload=dict(quantized_scan_upload=True),
-                 search_every_iteration=dict(use_fast_correspondences=False))[variant]
+                 search_every_iteration=dict(use_fast_correspondences=False), deskew=dict(deskew=True))[variant]
+    scans, times = swept if variant == "deskew" else (scans, [None] * len(scans))
     cfg = pl.SageConfig(**dict(TINY, **extra))
     odom = pl.SageICP(cfg, device="cpu")
-    poses = np.stack([odom.register_frame(s) for s in scans])
+    poses = np.stack([odom.register_frame(s, t) for s, t in zip(scans, times)])
     fields = dataclasses.asdict(cfg)
     free, follow = reference.Reference(fields, "cpu"), reference.Reference(fields, "cpu")
-    for s, p in zip(scans, poses):
-        free.register(s)
-        follow.register(s, follow=p)
+    for s, t, p in zip(scans, times, poses):
+        free.register(s, t)
+        follow.register(s, t, follow=p)
+    totals = odom.aux_totals()
+    limits = json.loads((BENCH / "limits" / "kitti.stream.json").read_text())
     for ref in (free, follow):
+        assert {k: sum(c[k] for c in ref.counters) for k in reference.DROP_COUNTERS} == {
+            k: int(getattr(totals, k)) for k in reference.DROP_COUNTERS}
+        if variant == "deskew":
+            dt, dr = verdict.pose_gaps([poses], ref.poses)
+            assert dt.max() <= limits["pose_gap_m"] and dr.max() <= limits["rotation_gap_rad"], (dt, dr)
+            assert verdict.map_mismatch(odom.state.map[:3], ref.state.map[:3], cfg.voxel_size_map) <= limits[
+                "map_point_mismatch"]
+            continue
         assert np.array_equal(np.stack(ref.poses), poses)
         assert all(torch.equal(a, b) for a, b in zip(ref.state.map, odom.state.map[:4]))
         assert [c["icp_iterations"] for c in ref.counters] == odom.iteration_counts().tolist()
-        totals = odom.aux_totals()
-        assert {k: sum(c[k] for c in ref.counters) for k in reference.DROP_COUNTERS} == {
-            k: int(getattr(totals, k)) for k in reference.DROP_COUNTERS}

@@ -3,7 +3,9 @@ entry points as a traffic file's parameters say, and keeps what the
 metrics and the check read.
 
     frames_per_call  1: SageICP.register_frame(scan), one scan a call;
-                     W > 1: SageICP.register_chunk(list of W scans)
+                     W > 1: SageICP.register_chunk(list of W scans);
+                     drives that carry point times (a swept scene) hand
+                     them over beside the scans, as timestamps=
     pose_fetch       "per_call": each call waits for its poses on the
                      host (register_frame(block=True); a chunk's poses
                      copied over); "per_drive": the poses stay on the
@@ -68,9 +70,10 @@ class Window:
 
 
 class Driver:
-    def __init__(self, odom, drives: list, params: dict, span=None):
-        """drives: [drive][frame] -> (n, 4) float32 scan rows."""
-        self.odom, self.drives = odom, drives
+    def __init__(self, odom, drives: list, params: dict, span=None, times: list | None = None):
+        """drives: [drive][frame] -> (n, 4) float32 scan rows; times: None,
+        or [drive][frame] -> (n,) each point's sweep phase."""
+        self.odom, self.drives, self.times = odom, drives, times
         self.per_call = int(params["frames_per_call"])
         self.fetch = params["pose_fetch"]
         if self.per_call < 1 or self.fetch not in ("per_call", "per_drive"):
@@ -81,6 +84,7 @@ class Driver:
         """Drive `index` from an empty map; (seconds, frames, index of the
         first frame) of each call are appended to `calls`."""
         odom, scans = self.odom, self.drives[index]
+        stamps = None if self.times is None else self.times[index]
         with self.span("reinitialize"):
             odom.reinitialize()
         for lo in range(0, len(scans), self.per_call):
@@ -88,9 +92,11 @@ class Driver:
             t0 = time.perf_counter()
             with self.span("call"):
                 if len(batch) == 1 and self.per_call == 1:
-                    odom.register_frame(batch[0], block=self.fetch == "per_call")
+                    odom.register_frame(batch[0], timestamps=None if stamps is None else stamps[lo],
+                                        block=self.fetch == "per_call")
                 else:
-                    poses = odom.register_chunk(batch)
+                    poses = odom.register_chunk(batch, timestamps=None if stamps is None else
+                                                stamps[lo:lo + self.per_call])
                     if self.fetch == "per_call":
                         poses.cpu()
             if calls is not None:
