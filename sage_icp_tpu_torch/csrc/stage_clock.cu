@@ -20,12 +20,16 @@
 //   27 vehicle_cells, 28 diffusion_rounds
 //                        the dynamic filter's counts, written by its
 //                        min-diffusion (csrc/min_diffusion.cu); 0 without it
+//   29 deskew            the deskew stage's summed device time, ns
+//   30 deskewed_points   the scan's rows deskew moved, written by the stamp
+//                        that ends the deskew stage; 0 without deskew
 //
 // Ops: BEGIN opens the frame and its first piece (the row zeroed); START
 // opens a piece; SPLIT ends a stage (slot) and starts the next inside a
-// piece; CLOSE ends a stage and the piece; END_FRAME does CLOSE, copies
-// *value (when given) to live_rows and advances the frame counter. The
-// time between pieces is in no slot: it is the device's idle time.
+// piece; CLOSE ends a stage and the piece; END_FRAME does CLOSE and
+// advances the frame counter. SPLIT, CLOSE and END_FRAME copy *value, when
+// given, into the slot `into` (END_FRAME's: live_rows). The time between
+// pieces is in no slot: it is the device's idle time.
 //
 // What bounds it: one thread, a handful of 8-byte loads and stores; the
 // launch latency is the floor (a few microseconds a stamp).
@@ -37,9 +41,9 @@
 
 namespace {
 
-constexpr int kSeq = 0, kFirst = 1, kLast = 2, kMark = 3, kLiveRows = 9, kRuns = 10, kRun0 = 11;
+constexpr int kSeq = 0, kFirst = 1, kLast = 2, kMark = 3, kRuns = 10, kRun0 = 11;
 constexpr int kMaxRuns = 8;
-constexpr int kSlots = kRun0 + 2 * kMaxRuns + 2;
+constexpr int kSlots = kRun0 + 2 * kMaxRuns + 4;
 constexpr int kBegin = 0, kStart = 1, kSplit = 2, kClose = 3, kEndFrame = 4;
 
 __device__ __forceinline__ long long global_ns() {
@@ -49,7 +53,7 @@ __device__ __forceinline__ long long global_ns() {
 }
 
 __global__ void stage_clock_kernel(long long* __restrict__ ring, long long* __restrict__ frame, int capacity,
-                                   int op, int slot, const int32_t* __restrict__ value,
+                                   int op, int slot, const int32_t* __restrict__ value, int into,
                                    unsigned long long* __restrict__ launches) {
   sage::count_launch(launches);
   const long long t = global_ns();
@@ -73,22 +77,21 @@ __global__ void stage_clock_kernel(long long* __restrict__ ring, long long* __re
   row[slot] += t - row[kMark];
   row[kMark] = t;
   row[kLast] = t;
+  if (value != nullptr) row[into] = *value;
   if (op == kSplit) return;
   row[kRun0 + 2 * (n < kMaxRuns ? n : kMaxRuns) - 1] = t;
-  if (op == kEndFrame) {
-    if (value != nullptr) row[kLiveRows] = *value;
-    *frame = seq + 1;
-  }
+  if (op == kEndFrame) *frame = seq + 1;
 }
 
 }  // namespace
 
-// ring: (capacity, 29) int64 rows; frame: one int64, the frame counter;
-// slot: the stage of SPLIT / CLOSE / END_FRAME; value: one int32 or null.
-// All device pointers. One launch of one thread.
+// ring: (capacity, 31) int64 rows; frame: one int64, the frame counter;
+// slot: the stage of SPLIT / CLOSE / END_FRAME; value: one int32 or null,
+// copied into the slot `into`. All device pointers. One launch of one
+// thread.
 extern "C" int sage_stage_clock(void* ring, void* frame, int capacity, int op, int slot, const void* value,
-                                void* launches, void* stream) {
+                                int into, void* launches, void* stream) {
   stage_clock_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((long long*)ring, (long long*)frame, capacity, op, slot,
-                                                        (const int32_t*)value, (unsigned long long*)launches);
+                                                        (const int32_t*)value, into, (unsigned long long*)launches);
   return (int)cudaGetLastError();
 }

@@ -261,9 +261,20 @@ def _fast_ok(config: SageConfig) -> bool:
         config.voxel_size_map, config.local_map_range, config.max_range)
 
 
-def scan_head(state: OdomState, points, valid, timestamps, config: SageConfig, mesh=None):
+def _no_stamp(slot, value=None, into=None) -> None:
+    """The stage clock's split where a step has no clock."""
+
+
+def scan_head(state: OdomState, points, valid, timestamps, config: SageConfig, mesh=None, stamp=None):
     """Deskew (with config.deskew, from the third pose on) and preprocess:
     (cropped (cap, 4), crop_valid (cap,)).
+
+    stamp: the step's stage clock (tracing.StageClock.split). With deskew
+    it ends the `deskew` stage after the deskew and writes the frame's
+    deskewed points (the scan's valid rows from the third pose on, 0
+    before: a count on the device, never read here); then it ends the
+    `head` stage after the crop (and a mesh's gather). Without deskew the
+    `head` stamp alone.
 
     mesh (parallel.sharding.Mesh), with deskew on: each rank deskews and
     crops its contiguous share of the scan's points (Mesh.local_rows), and
@@ -276,19 +287,25 @@ def scan_head(state: OdomState, points, valid, timestamps, config: SageConfig, m
     and its gather (0.028 against 0.060 device ms a kitti scan on two
     H100s over NVLink); with deskew the two cost about the same (0.58
     whole, 0.59 split: PERF.md)."""
+    stamp = stamp or _no_stamp
     n = points.shape[0]
     split = mesh is not None and config.deskew
+    if config.deskew:
+        # gated on the device (no host sync): from the third pose on
+        deskewing = state.num_poses > 2
+        moved = torch.where(deskewing, valid.sum(dtype=torch.int32), 0)
     if split:
         points, valid, timestamps = (mesh.local_rows(x) for x in (points, valid, timestamps))
     if config.deskew:
-        # gated on the device (no host sync): from the third pose on
         deskewed = scan_ops.deskew(points, timestamps, state.prev_pose, state.last_pose)
-        points = torch.where(state.num_poses > 2, deskewed, points)
+        points = torch.where(deskewing, deskewed, points)
+        stamp(tracing.DESKEW, moved, tracing.DESKEWED_POINTS)
     cropped, crop_valid = scan_ops.preprocess(
         points, valid, config.max_range, config.min_range, config.label_max_range)
     if split:
         rows = mesh.gather_rows(torch.cat([cropped, crop_valid[:, None].to(cropped.dtype)], dim=1), n)
         cropped, crop_valid = rows[:, :4], rows[:, 4] != 0
+    stamp(tracing.HEAD)
     return cropped, crop_valid
 
 
@@ -300,12 +317,12 @@ def prepare_icp_inputs(state: OdomState, points, valid, timestamps, config: Sage
     (scan_head, dynamic_filter.filter_dynamic_vehicles); the downsample
     and everything after it here stay whole on every rank. stamp: the
     step's stage clock (tracing.StageClock.split), called with the stage
-    after the scan head, the filter and the downsample."""
+    after the deskew and the crop (scan_head), the filter and the
+    downsample."""
     dev = points.device
     eye = _eye(dev)
-    stamp = stamp or (lambda slot: None)
-    cropped, crop_valid = scan_head(state, points, valid, timestamps, config, mesh)
-    stamp(tracing.HEAD)
+    stamp = stamp or _no_stamp
+    cropped, crop_valid = scan_head(state, points, valid, timestamps, config, mesh, stamp)
     dyn_overflow = lmk_dropped = _i32(0, dev)
     if config.dynamic_vehicle_filter:
         cropped, crop_valid, dyn_overflow, lmk_dropped = dyn.filter_dynamic_vehicles(cropped, crop_valid, config,
@@ -652,9 +669,10 @@ class DeviceStep:
     Every call is a frame of the recorder (runtime/tracing.py): its
     input copy is the `upload` span, its pieces the `launch.*` spans, and
     each piece stamps the device's stage clock (captured with it): prepare
-    opens the frame and stamps the head, filter and downsample stages, its
-    rest and every block and reanchor piece go to the icp stage, finish to
-    the update stage and, last, the frame's GN live-row count."""
+    opens the frame and stamps the deskew (with its count of deskewed
+    points), head, filter and downsample stages, its rest and every block
+    and reanchor piece go to the icp stage, finish to the update stage
+    and, last, the frame's GN live-row count."""
 
     def __init__(self, config: SageConfig, device=None, graph: bool = True, packed: bool = True, mesh=None,
                  shard_insert: bool = True, donate: bool = True):

@@ -57,50 +57,71 @@ def preprocess(points, valid, max_range: float, min_range: float, label_max_rang
     return pts, keep
 
 
-def _fma_dot3(a, b) -> torch.Tensor:
-    """a[0] * b[0] + a[1] * b[1] + a[2] * b[2] for float32 tensors, as a
-    fused multiply-add chain: each step one float64 product and sum (the
-    product of two float32 values is exact there) rounded to float32."""
-    acc = (a[0].to(torch.float64) * b[0]).to(torch.float32)
-    acc = (acc.to(torch.float64) + a[1].to(torch.float64) * b[1]).to(torch.float32)
-    return (acc.to(torch.float64) + a[2].to(torch.float64) * b[2]).to(torch.float32)
+# Below this angle (rad) deskew takes its coefficients by their series:
+# float32's closed forms (1 - cos t) / t^2 and (t - sin t) / t^3 cancel
+# to 0 near 4e-4 and 8e-4 rad, where a cruising vehicle's points turn.
+# The series through t^4 is exact in float32 up to here (its next terms
+# are below 1e-9); benchmark/reference/deskew.py switches at the same
+# angle.
+SERIES_BELOW = 0.1
+
+
+def _series(theta2, c0: float, c2: float, c4: float):
+    """c0 + c2 t^2 + c4 t^4, Horner's rule on t^2, each step one float32
+    product or sum (the card and the CPU round each alike)."""
+    return c0 + theta2 * (c2 + theta2 * c4)
 
 
 def deskew(points, timestamps, start_pose, finish_pose):
     """points (N, 4) xyz+label, timestamps (N,) in [0, 1], start/finish
     (4, 4) poses -> (N, 4), xyz moved by exp((t - 0.5) * delta),
-    delta = log(start^-1 finish), all in float32 as in the reference.
+    delta = log(start^-1 finish), in float32.
 
     Each point's exponential is written out element by element (the
-    Rodrigues and V coefficients as in geometry.se3_exp; hat(phi)^2 =
+    Rodrigues and V coefficients a = sin t / t, b = (1 - cos t) / t^2 and
+    c = (t - sin t) / t^3, by their series below SERIES_BELOW; hat(phi)^2 =
     phi phi^T - |phi|^2 I, its diagonal summed in float64 and rounded
-    once; V rho as a fused multiply-add chain) and its rotation applied as the
-    reference's einsum rounds it on the CPU, fma(R2, z, fma(R1, y, R0 * x)),
-    then + t: no batched matrix product, so a point's result does not
-    depend on the batch it is in (a rank's share of the scan gives the
-    bits of the whole scan) and the card and the CPU give the same bits."""
+    once), and the point moved as p + (R - I) p + V rho: the six products
+    of float32 values exact in float64, summed there with p and rounded
+    once, so a point 100 m out lies within float32's spacing of the exact
+    deskew. No batched matrix product: a point's result does not depend on
+    the batch it is in (a rank's share of the scan gives the bits of the
+    whole scan), and for the same delta the card and the CPU give the same
+    bits (delta's 4x4 product and log may round apart on the two: one
+    float32 step of a point 100 m out, seen on an H100).
+
+    The JAX package takes b and c in float32's closed forms from 1e-4 rad
+    on (sage_icp_tpu/ops/geometry.py se3_exp), where they cancel: its
+    points lie up to 6e-5 m from the exact deskew at a cruising vehicle's
+    angles. This deskew departs from it there, and stays within float32's
+    resolution of the exact one (tests/test_torch_deskew_chunk.py)."""
     delta = geo.se3_log(geo.se3_inverse(start_pose) @ finish_pose)  # (6,)
     s = timestamps - 0.5
     rho = [s * delta[i] for i in range(3)]
     phi = [s * delta[3 + i] for i in range(3)]
     theta2 = phi[0] * phi[0] + phi[1] * phi[1] + phi[2] * phi[2]
     theta = torch.sqrt(theta2 + geo._EPS * geo._EPS)
-    small = theta < 1e-4
+    small = theta < SERIES_BELOW
     sin_t = geo._sin(theta)
-    a = torch.where(small, 1.0 - theta2 / 6.0, sin_t / theta)
-    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - geo._cos(theta)) / theta2)
-    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (theta - sin_t) / (theta2 * theta))
+    a = torch.where(small, _series(theta2, 1.0, -1.0 / 6.0, 1.0 / 120.0), sin_t / theta)
+    b = torch.where(small, _series(theta2, 0.5, -1.0 / 24.0, 1.0 / 720.0), (1.0 - geo._cos(theta)) / theta2)
+    c = torch.where(small, _series(theta2, 1.0 / 6.0, -1.0 / 120.0, 1.0 / 5040.0), (theta - sin_t) / (theta2 * theta))
     K = [[None, -phi[2], phi[1]], [phi[2], None, -phi[0]], [-phi[1], phi[0], None]]  # hat(phi)
     d = [p.to(torch.float64) for p in phi]
     KK = [[phi[i] * phi[j] for j in range(3)] for i in range(3)]
     for i in range(3):
         j, k = (i + 1) % 3, (i + 2) % 3
         KK[i][i] = (-(d[j] * d[j] + d[k] * d[k])).to(torch.float32)
-    # I + a K + b K^2 and I + b K + c K^2: K's diagonal is 0
-    R = [[1.0 + b * KK[i][j] if i == j else a * K[i][j] + b * KK[i][j] for j in range(3)] for i in range(3)]
+    # R - I = a K + b K^2 and V = I + b K + c K^2: K's diagonal is 0
+    R = [[b * KK[i][j] if i == j else a * K[i][j] + b * KK[i][j] for j in range(3)] for i in range(3)]
     V = [[1.0 + c * KK[i][j] if i == j else b * K[i][j] + c * KK[i][j] for j in range(3)] for i in range(3)]
-    xyz = [points[:, i] for i in range(3)]
-    out = [_fma_dot3(R[i], xyz) + _fma_dot3(V[i], rho) for i in range(3)]
+    terms = [x.to(torch.float64) for x in [points[:, 0], points[:, 1], points[:, 2], *rho]]
+    out = []
+    for i in range(3):
+        acc = terms[i]
+        for coef, x in zip(R[i] + V[i], terms):
+            acc = acc + coef.to(torch.float64) * x
+        out.append(acc.to(torch.float32))
     return torch.cat([torch.stack(out, dim=-1), points[:, 3:]], dim=-1)
 
 

@@ -36,13 +36,15 @@ the step's graphs and run eagerly without them; on the CPU the row is
 written from the host clock. A frame's row holds the summed device time
 of its stages,
 
-    head        scan_head: deskew and preprocess
+    head        scan_head: preprocess (the crop), and on a mesh the gather
+                of the cropped rows
     filter      filter_dynamic_vehicles (0 with the filter off)
     downsample  voxelize
     icp         the rest of prepare (sigma, prediction, probe tables, the
                 rows at the guess, the first block) and every block and
                 reanchor piece
     update      finish: guard, insert, cull, state and totals
+    deskew      scan_head's deskew (0 without config.deskew)
 
 its first and last stamp, and the (start, end) of each piece (a graph
 replay or an eager piece). The time between pieces is in no stage: it is
@@ -55,7 +57,11 @@ min-diffusion writes two counts into the row itself (on the card the
 kernel csrc/min_diffusion.cu, on the CPU dynamic_filter._min_diffusion):
 the frame's occupied vehicle cells and the rounds that changed a cluster
 id (at most 24: 24 says the round cut may bind); both 0 with the filter
-off.
+off. With config.deskew the stamp that ends the deskew stage writes the
+frame's deskewed points into the row: the scan's valid rows from the
+third pose on, 0 before (pipeline.scan_head); 0 without deskew. A stamp
+writes a count given to it (`value`) into its slot (`into`) as it stamps,
+so no count is read back while frames are stepped.
 
 Reading. RECORDER.read() copies each device's ring to the host in one
 transfer (it waits for the device) and returns a Snapshot: the frames'
@@ -89,17 +95,21 @@ LIVE_ROWS, PIECES, PIECE0 = 9, 10, 11
 MAX_PIECES = 8
 VEHICLE_CELLS = PIECE0 + 2 * MAX_PIECES
 DIFFUSION_ROUNDS = VEHICLE_CELLS + 1
-SLOTS = DIFFUSION_ROUNDS + 1
-STAGES = {"head": HEAD, "filter": FILTER, "downsample": DOWNSAMPLE, "icp": ICP, "update": UPDATE}
+DESKEW = DIFFUSION_ROUNDS + 1
+DESKEWED_POINTS = DESKEW + 1
+SLOTS = DESKEWED_POINTS + 1
+STAGES = {"head": HEAD, "filter": FILTER, "downsample": DOWNSAMPLE, "icp": ICP, "update": UPDATE, "deskew": DESKEW}
 BEGIN, START, SPLIT, CLOSE, END_FRAME = range(5)
 
-_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
 _profiling = torch._C._autograd._profiler_enabled
 
 
-def stamp_row(row: np.ndarray, op: int, slot: int, t: int, seq: int = 0, value: int | None = None) -> None:
+def stamp_row(row: np.ndarray, op: int, slot: int, t: int, seq: int = 0, value: int | None = None,
+              into: int = LIVE_ROWS) -> None:
     """One stamp at time t on the row of frame `seq`: the kernel's
-    arithmetic (value: END_FRAME's live rows)."""
+    arithmetic (value: a count SPLIT, CLOSE or END_FRAME writes into the
+    slot `into`, END_FRAME's live rows by default)."""
     if op == BEGIN:
         row[:] = 0
         row[SEQ] = seq
@@ -116,8 +126,8 @@ def stamp_row(row: np.ndarray, op: int, slot: int, t: int, seq: int = 0, value: 
     row[MARK] = row[LAST] = t
     if op != SPLIT:
         row[PIECE0 + 2 * min(n, MAX_PIECES) - 1] = t
-    if op == END_FRAME and value is not None:
-        row[LIVE_ROWS] = value
+    if value is not None:
+        row[into] = value
 
 
 class Span(NamedTuple):
@@ -147,6 +157,7 @@ class FrameRecord:
     live_rows: int | None
     vehicle_cells: int | None  # the filter's occupied vehicle cells (0 with the filter off)
     diffusion_rounds: int | None  # its min-diffusion's rounds that changed an id
+    deskewed_points: int | None  # the scan's rows deskew moved (0 without deskew, and before the third pose)
     spans: list  # the frame's host spans
 
     @property
@@ -203,11 +214,13 @@ class Snapshot:
 
 
 class _Frame:
-    __slots__ = ("id", "drive", "ring", "seq", "row", "live", "counts", "closed", "ended")
+    __slots__ = ("id", "drive", "ring", "seq", "row", "counts", "closed", "ended")
 
     def __init__(self, fid, drive, ring, seq, row):
         self.id, self.drive, self.ring, self.seq, self.row = fid, drive, ring, seq, row
-        self.live, self.counts, self.closed, self.ended = None, None, False, False
+        # the counts of a frame stepped on the CPU, slot -> 0-dim tensor,
+        # written into its row when it is read
+        self.counts, self.closed, self.ended = {}, False, False
 
 
 class _DeviceRing:
@@ -341,7 +354,7 @@ class Recorder:
         kernel: nothing is kept for it, nor outside a frame."""
         frame = self._local.stack.current
         if frame is not None and (frame.ring is None or frame.ring.rows.device.type == "cpu"):
-            frame.counts = (cells, rounds)
+            frame.counts.update({VEHICLE_CELLS: cells, DIFFUSION_ROUNDS: rounds})
 
     def close_frame(self) -> None:
         """The frame's last stamp (END_FRAME) is launched: the device's
@@ -371,14 +384,12 @@ class Recorder:
             by_frame.setdefault(s.frame, []).append(s)
         records = []
         for f in frames:
-            if f.ring is None:
-                row, live = f.row, None if f.live is None else int(f.live)
-            else:
-                row = rows[f.ring][f.seq % self.capacity]
-                live = int(row[LIVE_ROWS])
-            if f.counts is not None:
+            row = f.row if f.ring is None else rows[f.ring][f.seq % self.capacity]
+            if f.counts:
                 row = row.copy()
-                row[VEHICLE_CELLS], row[DIFFUSION_ROUNDS] = (int(c) for c in f.counts)
+                for slot, c in f.counts.items():
+                    row[slot] = int(c)
+            live = int(row[LIVE_ROWS]) if f.ring is not None or LIVE_ROWS in f.counts else None
             n = int(row[PIECES]) if int(row[SEQ]) == f.seq else 0
             kept = min(n, MAX_PIECES)
             records.append(FrameRecord(
@@ -389,6 +400,7 @@ class Recorder:
                 pieces_run=n, live_rows=live if n else None,
                 vehicle_cells=int(row[VEHICLE_CELLS]) if n else None,
                 diffusion_rounds=int(row[DIFFUSION_ROUNDS]) if n else None,
+                deskewed_points=int(row[DESKEWED_POINTS]) if n else None,
                 spans=[s for s in by_frame.get(f.id, []) if s.drive == f.drive]))
         return Snapshot(records, spans)
 
@@ -398,9 +410,10 @@ class StageClock:
     frame's row and its first piece, start opens a piece, split ends a
     stage inside a piece, close ends a stage and the piece, end_frame
     closes the frame's last piece and copies its GN live-row count
-    (`value`, a 0-dim int32 tensor). Nothing is read back. A stamp belongs
-    to the frame this thread steps (Recorder.begin_frame); outside one it
-    raises."""
+    (`value`, a 0-dim int32 tensor). split also copies a count into the
+    slot `into` when it is given one (the deskewed points). Nothing is
+    read back. A stamp belongs to the frame this thread steps
+    (Recorder.begin_frame); outside one it raises."""
 
     def __init__(self, rec: Recorder, device: torch.device):
         self._rec = rec
@@ -412,8 +425,8 @@ class StageClock:
     def start(self) -> None:
         self._stamp(START, 0)
 
-    def split(self, slot: int) -> None:
-        self._stamp(SPLIT, slot)
+    def split(self, slot: int, value: torch.Tensor | None = None, into: int = LIVE_ROWS) -> None:
+        self._stamp(SPLIT, slot, value, into)
 
     def close(self, slot: int) -> None:
         self._stamp(CLOSE, slot)
@@ -421,15 +434,15 @@ class StageClock:
     def end_frame(self, slot: int, value: torch.Tensor | None = None) -> None:
         self._stamp(END_FRAME, slot, value)
 
-    def _stamp(self, op: int, slot: int, value=None) -> None:
+    def _stamp(self, op: int, slot: int, value=None, into: int = LIVE_ROWS) -> None:
         frame = self._rec._local.stack.current
         if frame is None:
             raise RuntimeError("a stage-clock stamp outside a frame (Recorder.begin_frame)")
         ring = self._ring
         if ring is None:
             stamp_row(frame.row, op, slot, time.perf_counter_ns(), frame.seq)
-            if op == END_FRAME and value is not None:
-                frame.live = value.clone()
+            if value is not None:
+                frame.counts[into] = value.clone()
             return
         from sage_icp_tpu_torch.ops import cuda_lib
 
@@ -437,7 +450,7 @@ class StageClock:
             cuda_lib.check_cuda("value", value, torch.int32, ())
         fn = cuda_lib.function("stage_clock.cu", "sage_stage_clock", _ARGTYPES)
         cuda_lib.call("stage_clock", fn, ring.device, cuda_lib.ptr(ring.rows), cuda_lib.ptr(ring.counter),
-                      ring.rows.shape[0], op, slot, None if value is None else cuda_lib.ptr(value))
+                      ring.rows.shape[0], op, slot, None if value is None else cuda_lib.ptr(value), into)
 
 
 RECORDER = Recorder()

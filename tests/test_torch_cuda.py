@@ -3,8 +3,8 @@ version, the ICP solve and the dynamic-vehicle filter against the port on
 the CPU, the odometry step on the reference suite's trajectories
 (golden fixture, turn-stop-reverse maneuver, undersized capacities, a
 garbage scan, motion-skewed scans with deskew on and off) and on the
-default `kitti` preset, the deskew gate, the chunked step against single
-frames and a checkpoint resume. This file imports no
+default `kitti` preset, the kitti prepare graph's node count, the deskew
+gate, the chunked step against single frames and a checkpoint resume. This file imports no
 JAX, so it runs where only PyTorch is installed (tests/conftest.py
 imports jax, hence --noconftest):
 
@@ -37,6 +37,7 @@ The seeded input builders here are shared with tests/test_torch_kernels.py
 and tests/test_torch_dynfilter.py.
 """
 
+import dataclasses
 import itertools
 import pathlib
 
@@ -992,6 +993,41 @@ def test_kitti_default_preset_on_card(card):
     g0 = np.linalg.inv(gt[0])
     err = [np.linalg.norm(e[:3, 3] - (g0 @ g)[:3, 3]) for e, g in zip(odom.trajectory(), gt)]
     assert max(err) < 0.05
+
+
+# The kitti preset's prepare graph (deskew off): its nodes before the scan
+# head's clock split into a deskew and a head stage, which adds nothing
+# without deskew (torch 2.11.0+cu128 on an H100; the deskew on, 1,310).
+KITTI_PREPARE_NODES = 986
+
+
+def graph_nodes(graph) -> int:
+    """The nodes of a CUDA graph captured with keep_graph=True: libcuda's
+    cuGraphGetNodes on its cudaGraph_t."""
+    import ctypes
+
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    libcuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    n = ctypes.c_size_t(0)
+    assert libcuda.cuGraphGetNodes(graph.raw_cuda_graph(), None, ctypes.byref(n)) == 0
+    return n.value
+
+
+@pytest.mark.cuda
+def test_kitti_prepare_graph_keeps_its_nodes(card, small_city, monkeypatch):
+    """The kitti preset's captured prepare graph holds KITTI_PREPARE_NODES
+    nodes; with deskew on it holds more (the deskew, its count and the
+    deskew stage's stamp)."""
+    real = torch.cuda.CUDAGraph
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: real(keep_graph=True))
+    scan = synthetic.render_scan(*small_city, synthetic.make_trajectory(1, step=1.0)[0], np.random.default_rng(0),
+                                 n_target=20_000)
+    nodes = {}
+    for deskew in (False, True):
+        odom = tpl.SageICP(dataclasses.replace(tpl.PRESETS["kitti"], deskew=deskew))
+        odom.register_frame(scan)
+        nodes[deskew] = graph_nodes(odom._step._graphs["prepare"])
+    assert nodes[False] == KITTI_PREPARE_NODES and nodes[True] > nodes[False]
 
 
 def skewed_city_drive(world, frames=12, step=2.0):

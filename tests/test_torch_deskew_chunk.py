@@ -2,17 +2,21 @@
 the JAX package, on the CPU, and a JAX checkpoint of a deskewed run
 loaded into the port.
 
-Tolerances: deskew and skew_scan within 1e-5 m of JAX's on seeded points
-within 80 m (float32 resolution there is 7.6e-6 m); the int16 packing
-and unpacking bit for bit; a deskewed step from JAX's carried state:
-pose within 1e-4, keys and counts equal, int16 planes within 1 LSB, drop
-counters equal; the JAX checkpoint's state equal field for field; the analogs of the JAX suite's tests at their bounds:
-deskew on distorted scans (on < 0.7 x off, on < 0.10 m), chunked equal to
+Tolerances: deskew within 1e-5 m of JAX's deskew evaluated in float64
+(exact far below float32's spacing) on seeded points out to 140 m and at
+frame rotations from a few mrad to 0.3 rad (float32 resolution at 64-128
+m is 7.6e-6 m); skew_scan within 1e-5 m of JAX's; the int16 packing
+and unpacking bit for bit; a deskewed step from JAX's carried state, JAX
+given the port's deskewed points: pose within 1e-4, keys and counts
+equal, int16 planes within 1 LSB, drop counters equal; the JAX
+checkpoint's state equal field for field; the analogs of the JAX suite's
+tests at their bounds: deskew on distorted scans (on < 0.7 x off, on < 0.10 m), chunked equal to
 single frames (1e-5), a mid-chunk overflow caught by the chunk's
 aggregate, the quantized upload within 0.02 m of float32."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -57,6 +61,24 @@ def seeded_points(seed, n=20_000, extent=80.0):
     return pts.astype(np.float32), rng.uniform(0.0, 1.0, n).astype(np.float32), rng
 
 
+def jax_deskew_f64(pts, ts, start, finish) -> np.ndarray:
+    """JAX's deskew of the same float32 inputs evaluated in float64 (the
+    scoped x64 switch): the exact deskew to far below float32's spacing.
+    In float32 its coefficients (1 - cos t) / t^2 and (t - sin t) / t^3
+    cancel at a cruising vehicle's angles (ops/scan.py, the pinned
+    departure), which the port's series does not."""
+    with jax.enable_x64(True):
+        return np.asarray(jscan.deskew(*(jnp.asarray(np.asarray(x), jnp.float64) for x in (pts, ts, start, finish))))
+
+
+def check_deskew(pts, ts, start, finish):
+    want = jax_deskew_f64(pts, ts, start, finish)
+    got = tscan.deskew(torch.from_numpy(pts), torch.from_numpy(ts), torch.from_numpy(np.array(start)),
+                       torch.from_numpy(np.array(finish))).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got[:, 3], pts[:, 3])
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_deskew_matches_jax(seed):
     """Start and finish poses with a random attitude and a frame's motion
@@ -64,11 +86,25 @@ def test_deskew_matches_jax(seed):
     pts, ts, rng = seeded_points(seed)
     start = jgeo.se3_exp(jnp.asarray(rng.normal(0.0, 0.3, 6), jnp.float32))
     finish = start @ jgeo.se3_exp(jnp.asarray([1.0, 0.05, 0.01, 0.002, 0.001, 0.0005 * (seed + 1)], jnp.float32))
-    want = np.asarray(jscan.deskew(jnp.asarray(pts), jnp.asarray(ts), start, finish))
-    got = tscan.deskew(torch.from_numpy(pts), torch.from_numpy(ts), torch.from_numpy(np.array(start)),
-                       torch.from_numpy(np.array(finish))).numpy()
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
-    np.testing.assert_array_equal(got[:, 3], pts[:, 3])
+    check_deskew(pts, ts, start, finish)
+
+
+@pytest.mark.parametrize("rotation", [2e-4, 1e-3, 1e-2, 0.3], ids=["2e-4", "1e-3", "1e-2", "0.3"])
+def test_deskew_matches_jax_at_cruising_angles(rotation):
+    """A frame rotation about a random axis: 2e-4 to 1e-2 rad, a vehicle
+    holding its lane or drifting, where float32's closed forms cancel for
+    the points' angles (up to half the frame's), and 0.3 rad, a sharp
+    turn; 1 m of travel, points 5-100 m out in every direction."""
+    rng = np.random.default_rng(int(rotation * 1e4))
+    n = 20_000
+    direction = rng.normal(size=(n, 3))
+    xyz = direction / np.linalg.norm(direction, axis=1, keepdims=True) * rng.uniform(5.0, 100.0, (n, 1))
+    pts = np.concatenate([xyz, rng.choice([0, 40, 50], (n, 1))], 1).astype(np.float32)
+    ts = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    axis = rng.normal(size=3)
+    twist = np.concatenate([rng.normal(0.0, 0.6, 3), axis / np.linalg.norm(axis) * rotation]).astype(np.float32)
+    start = jgeo.se3_exp(jnp.asarray(rng.normal(0.0, 0.3, 6), jnp.float32))
+    check_deskew(pts, ts, start, start @ jgeo.se3_exp(jnp.asarray(twist)))
 
 
 def test_skew_scan_matches_jax():
@@ -156,32 +192,43 @@ def test_deskew_reduces_ate_on_distorted_scans(skewed_drive):
 @pytest.fixture(scope="module")
 def jax_deskew_run(skewed_drive):
     """Frames 0-3 of the skewed drive in JAX with deskew on: the odometry
-    and its state (as numpy) after each frame."""
+    and its state (as numpy) after each frame, and a copy of its state
+    after frame 2 (the step donates the state it is given)."""
     scans, tss, _ = skewed_drive
     odom = jpl.SageICP(small_config(deskew=True))
     states = []
     for s, t in zip(scans[:4], tss[:4]):
+        if len(states) == 3:
+            before_3 = jax.tree_util.tree_map(jnp.copy, odom.state)
         odom.register_frame(s, t)
         states.append(state_to_numpy(odom.state))
-    return odom, states
+    return odom, states, before_3
 
 
 def test_carried_state_deskew_step_matches_jax(skewed_drive, jax_deskew_run):
     """The port steps frame 3 (the first deskewed one: num_poses 3) from
-    JAX's state after frame 2."""
+    JAX's state after frame 2. JAX steps the same frame from the same
+    state, given the points the port's deskew gives them (its own
+    deskew, at every point's time 0.5, leaves them as they are): its
+    float32 deskew is not the port's (ops/scan.py), and that, not the
+    rest of the step, is what test_deskew_matches_jax checks."""
     scans, tss, _ = skewed_drive
-    odom, states = jax_deskew_run
+    odom, states, before_3 = jax_deskew_run
     cfg = port(small_config(deskew=True))
     buf = tpl.SageICP(cfg, device="cpu").pad_chunk([scans[3]], [tss[3]])[0]
     pts, valid, ts = tpl._split_packed(torch.from_numpy(buf))
     state, pose, aux, _ = tpl.odometry_step(state_from_numpy(states[2], "cpu"), pts, valid, ts, cfg)
     assert int(states[2]["num_poses"]) == 3
-    np.testing.assert_allclose(pose.numpy(), np.asarray(odom.poses[-1]), atol=1e-4)
-    got, want = state_to_numpy(state), states[3]
+    n = len(scans[3])
+    moved = tscan.deskew(pts, ts, *(torch.from_numpy(np.array(states[2][k])) for k in ("prev_pose", "last_pose")))
+    jbuf = buf.copy()
+    jbuf[:n, :3], jbuf[:n, 4] = moved[:n, :3].numpy(), 0.5
+    jstate, jpose, aux_j = odom._step(jax.tree_util.tree_map(jnp.copy, before_3), jnp.asarray(jbuf))
+    np.testing.assert_allclose(pose.numpy(), np.asarray(jpose), atol=1e-4)
+    got, want = state_to_numpy(state), state_to_numpy(jstate)
     np.testing.assert_array_equal(got["map.keys"], want["map.keys"])
     np.testing.assert_array_equal(got["map.counts"], want["map.counts"])
     assert np.abs(got["map.points"].astype(np.int32) - want["map.points"].astype(np.int32)).max() <= 1
-    aux_j = odom.last_aux
     for name in COUNTERS:
         assert int(getattr(aux, name)) == int(getattr(aux_j, name)), name
 
@@ -190,7 +237,7 @@ def test_jax_checkpoint_loads_into_port(tmp_path, jax_deskew_run):
     """JAX's save_state after four deskewed frames -> the port's
     load_state: the state equal to JAX's field for field, dtypes
     included, and the trajectory."""
-    odom, states = jax_deskew_run
+    odom, states, _ = jax_deskew_run
     path = str(tmp_path / "jax.npz")
     j_ckpt.save_state(path, odom)
     loaded = t_ckpt.load_state(path, tpl.SageICP(port(small_config(deskew=True)), device="cpu"))

@@ -1,8 +1,9 @@
 """The recorder (sage_icp_tpu_torch/runtime/tracing.py): host spans and
 their nesting, the frames' records through SageICP, the stage clock's
-rows on the CPU, the profiler's view of the spans, the rings' bounds and
-the GN live-row counter; on the card, the captured step's stamps. This
-file imports no JAX, so the card's test runs where only PyTorch is:
+rows on the CPU, the profiler's view of the spans, the rings' bounds,
+the GN live-row counter and the deskew stage with its count; on the
+card, the captured step's stamps. This file imports no JAX, so the
+card's test runs where only PyTorch is:
 
     python -m pytest tests/test_torch_tracing.py -m cuda -q --noconftest
 """
@@ -188,6 +189,55 @@ def test_filter_counts_equal_a_host_replay(scene, request):
     assert cells > 0 and (rounds == tdyn._CC_ITERS) == (scene == "car_row")
 
 
+def stamped(odom, scans) -> list:
+    """Each frame's stamps, (op, slot) in order, as odom steps scans."""
+    clock, frames = odom._step.clock, []
+    real = clock._stamp
+
+    def stamp(op, slot, value=None, into=tracing.LIVE_ROWS):
+        if op == tracing.BEGIN:
+            frames.append([])
+        frames[-1].append((op, slot))
+        real(op, slot, value, into)
+
+    clock._stamp = stamp
+    try:
+        for s in scans:
+            odom.register_frame(s)
+    finally:
+        del clock._stamp
+    return frames
+
+
+def test_deskew_has_its_stage_and_counts_the_moved_rows():
+    """With deskew on, the head's clock splits after the deskew into the
+    deskew stage (one more stamp than without, before the head's), and the
+    frame's row counts the scan's valid rows from the third pose on, 0
+    before; without deskew the stamps are the same less that one, and the
+    stage and the count read 0."""
+    scans = scans_of(4)
+    runs = {}
+    for deskew in (False, True):
+        odom = tpl.SageICP(tpl.SageConfig(**TINY, deskew=deskew), device="cpu")
+        runs[deskew] = odom, stamped(odom, scans)
+    (off, off_stamps), (on, on_stamps) = runs[False], runs[True]
+    split = (tracing.SPLIT, tracing.DESKEW)
+    for a, b in zip(off_stamps, on_stamps):
+        assert split not in a and b.count(split) == 1
+        k = b.index(split)
+        assert b[k + 1] == (tracing.SPLIT, tracing.HEAD) and b[:k] + b[k + 1:] == a
+    snap = tracing.RECORDER.read()
+    for f in snap.frames_of([off.drive]):
+        assert f.stages_ns["deskew"] == 0 and f.deskewed_points == 0 and f.stages_ns["head"] > 0
+    frames = snap.frames_of([on.drive])
+    assert len(frames) == len(scans)
+    for k, (f, s) in enumerate(zip(frames, scans)):
+        _, valid, _ = tpl._split_packed(torch.from_numpy(on.pad_chunk([s])[0]))
+        assert f.stages_ns["deskew"] > 0 and f.stages_ns["head"] > 0
+        assert f.deskewed_points == (int(valid.sum()) if k >= 3 else 0)
+    assert frames[3].deskewed_points > 0
+
+
 def test_a_step_that_raises_leaves_the_next_frame_its_own_row(monkeypatch):
     """The card's numbering on the CPU: a ring whose rows the stamps write
     as csrc/stage_clock.cu does, chosen by the ring's own frame counter.
@@ -206,12 +256,12 @@ def test_a_step_that_raises_leaves_the_next_frame_its_own_row(monkeypatch):
     ring = clock._ring = Ring()
     monkeypatch.setitem(tracing.RECORDER._rings, "emulated", ring)
 
-    def stamp(op, slot, value=None):
+    def stamp(op, slot, value=None, into=tracing.LIVE_ROWS):
         if tracing.RECORDER._local.stack.current is None:
             raise RuntimeError("outside a frame")
         seq = int(ring.counter)
         row = ring.rows[seq % ring.rows.shape[0]].numpy()
-        tracing.stamp_row(row, op, slot, time.perf_counter_ns(), seq, None if value is None else int(value))
+        tracing.stamp_row(row, op, slot, time.perf_counter_ns(), seq, None if value is None else int(value), into)
         if op == tracing.END_FRAME:
             ring.counter += 1
 
