@@ -206,7 +206,8 @@ def run_phase(config, world, n_warmup: int, n_frames: int, n_points: int, chunk:
 
     t_stage = time.perf_counter()
     first = n_warmup + chunk
-    padded = [odom.pad_chunk(scans[i:i + chunk]) for i in range(first, n_total, chunk)]
+    # copies: pad_chunk hands back the SageICP's staging buffer, which its next call rewrites
+    padded = [odom.pad_chunk(scans[i:i + chunk]).copy() for i in range(first, n_total, chunk)]
     staged = overlap and device.type == "cuda" and bool(padded)
     if staged:
         padded = [torch.from_numpy(p).pin_memory() for p in padded]

@@ -666,6 +666,10 @@ class DeviceStep:
     until the next call. Running totals (`totals`, `lmk_total`) fold every
     frame as SageICP.aux_totals does; `reset_totals` zeroes them.
 
+    The inputs are copied into the step's own buffers without waiting
+    (`loaded`, a CUDA event, is recorded after the copy on a card): a
+    caller that rewrites a host input in place waits on it first.
+
     Every call is a frame of the recorder (runtime/tracing.py): its
     input copy is the `upload` span, its pieces the `launch.*` spans, and
     each piece stamps the device's stage clock (captured with it): prepare
@@ -692,6 +696,7 @@ class DeviceStep:
         self.clock = tracing.StageClock(tracing.RECORDER, self.device)
         self.state: OdomState | None = None
         self._input: list | None = None
+        self.loaded: torch.cuda.Event | None = None  # recorded after the last input copy (on a card)
         self._graphs: dict | None = None
         self.totals, self.chunk_totals = _zero_aux(self.device), _zero_aux(self.device)
         self.lmk_total = torch.zeros((), dtype=torch.int32, device=self.device)
@@ -715,6 +720,9 @@ class DeviceStep:
             d.copy_(s)
 
     def _load(self, inputs) -> None:
+        """The inputs copied into the step's own, without waiting on the
+        card (from pinned memory the copy runs behind the host); `loaded`
+        is recorded after them."""
         if self._input is None:
             self._input = [torch.empty(x.shape, dtype=x.dtype, device=self.device) for x in inputs]
         with _SPANS["upload"]:
@@ -722,7 +730,10 @@ class DeviceStep:
                 if x.shape != d.shape or x.dtype != d.dtype:
                     raise ValueError(f"the step's input is {tuple(d.shape)} {d.dtype}, got {tuple(x.shape)} "
                                      f"{x.dtype}")
-                d.copy_(x)
+                d.copy_(x, non_blocking=True)
+            if self.device.type == "cuda":
+                self.loaded = torch.cuda.Event()
+                self.loaded.record()
 
     def _prepare(self) -> None:
         cfg, clock = self.config, self.clock
@@ -864,10 +875,37 @@ def make_chunk_step(config: SageConfig, chunk: int, graph: bool = True, device=N
     return run
 
 
+class _Staging:
+    """SageICP's host buffer for chunks of W scans (W, scan_capacity,
+    lanes), made once and filled with the pad sentinel: pinned when the
+    step is on a card. `array` is its numpy view and, for float32,
+    `points` the view of each row's first four lanes as one 16-byte
+    element. `rows` holds each slot's scan rows as last written (the rows
+    past them hold the sentinel), `uploaded` the CUDA event recorded after
+    the last copy out of it (None: nothing to wait for), `device`
+    register_chunk's device buffer of the same shape."""
+
+    __slots__ = ("host", "array", "points", "rows", "uploaded", "device")
+
+    def __init__(self, shape: tuple, dtype: torch.dtype, sentinel, pin: bool):
+        self.host = torch.full(shape, sentinel, dtype=dtype, pin_memory=pin)
+        self.array = self.host.numpy()
+        if dtype == torch.float32:
+            W, cap, lanes = shape
+            self.points = np.ndarray((W, cap), "V16", buffer=self.array, strides=(cap * lanes * 4, lanes * 4))
+        self.rows = [0] * shape[0]
+        self.uploaded: torch.cuda.Event | None = None
+        self.device: torch.Tensor | None = None
+
+
 class SageICP:
     """Stateful wrapper: pads scans to the fixed capacity, steps the
     pipeline on `device` (default the card) and keeps the trajectory and
     running totals of the per-frame counters (no per-frame aux log).
+
+    Scans are staged in a host buffer of the SageICP's own, one for each
+    chunk length, reused from call to call (pinned on the card, so the
+    uploads run behind the host): pad_chunk's result is that buffer.
 
     It runs the device-resident step (DeviceStep): captured as CUDA graphs
     on the card (graph=None or True), eager on the CPU (graph=None or
@@ -890,6 +928,8 @@ class SageICP:
         self.graph, self.mesh = bool(graph), mesh
         geo.pin_full_fp32()
         self._step = DeviceStep(self.config, self.device, self.graph, packed=True, mesh=mesh)
+        self._staging: dict = {}  # (W, lanes, dtype) -> _Staging
+        self._staged: _Staging | None = None  # the buffer pad_chunk wrote last
         self.reinitialize()
 
     def reinitialize(self):
@@ -912,27 +952,72 @@ class SageICP:
         """(W, scan_capacity, 4|5) packed host buffer: float32 rows padded
         with INVALID_COORD, or int16 (quantized_scan_upload) padded with
         QSCAN_INVALID. With deskew on, lane 4 holds per-point timestamps
-        (given, or the azimuth phase). The `pad` span."""
+        (given, or the azimuth phase).
+
+        The buffer is this SageICP's staging buffer for W scans (made at
+        the first call with W, pinned on the card) and its next pad_chunk
+        of W scans overwrites it: copy it to keep it. Only the rows that
+        change are written: each scan's own, and the sentinel over the rows
+        its slot's previous scan held beyond them. The `pad` span, with the
+        recorder's staging counts; waiting for the buffer's last upload to
+        leave it is an `upload` span."""
         cfg = self.config
         cap = cfg.scan_capacity
         lanes = 5 if cfg.deskew else 4
+        quantized = cfg.quantized_scan_upload
+        dtype, sentinel = (torch.int16, QSCAN_INVALID) if quantized else (torch.float32, scan_ops.INVALID_COORD)
+        key = (len(scans), lanes, dtype)
+        st = self._staging.get(key)
+        if st is not None and st.uploaded is not None and not st.uploaded.query():
+            with _SPANS["upload"]:
+                st.uploaded.synchronize()
         with _SPANS["pad"]:
-            if cfg.quantized_scan_upload:
-                buf = np.full((len(scans), cap, lanes), QSCAN_INVALID, dtype=np.int16)
-            else:
-                buf = np.full((len(scans), cap, lanes), scan_ops.INVALID_COORD, dtype=np.float32)
+            made = st is None
+            if made:
+                st = self._staging[key] = _Staging((len(scans), cap, lanes), dtype, sentinel,
+                                                   self.device.type == "cuda")
+            staged = 0
             for i, s in enumerate(scans):
                 n = min(len(s), cap)
-                rows = np.asarray(s[:n, :4], dtype=np.float32)
+                rows = np.ascontiguousarray(s[:n, :4], dtype=np.float32)
+                ts = None
                 if lanes == 5:
                     ts = timestamps[i] if timestamps is not None else None
                     ts = azimuth_timestamps(rows[:, :3]) if ts is None else ts[:n]
-                    rows = np.concatenate([rows, np.asarray(ts, np.float32)[:, None]], axis=1)
-                if cfg.quantized_scan_upload:
-                    _quantize_scan_host(rows, buf[i])
+                    ts = np.asarray(ts, np.float32)
+                if quantized:
+                    _quantize_scan_host(rows if ts is None else np.concatenate([rows, ts[:, None]], axis=1),
+                                        st.array[i])
                 else:
-                    buf[i, :n] = rows
-        return buf
+                    # one thread (numpy): torch's copy over the intra-op threads waits, after a wait on
+                    # the card, for them to wake, which lengthened a streamed frame's tail
+                    st.points[i, :n] = rows.view("V16")[:, 0]
+                    if ts is not None:
+                        st.array[i, :n, 4] = ts
+                if n < st.rows[i]:
+                    st.array[i, n:st.rows[i]] = sentinel
+                st.rows[i] = n
+                staged += n
+            self._staged = st
+            tracing.RECORDER.count_staging(staged, int(made))
+        return st.array
+
+    def _upload_chunk(self, host: torch.Tensor) -> torch.Tensor:
+        """register_chunk's copy of a pad_chunk result to the card, into
+        the staging buffer's device twin (made at its first chunk), without
+        waiting; the staging buffer's `uploaded` is recorded after it. On
+        the CPU the buffer is stepped as it is. The `upload` span."""
+        st = self._staged
+        with _SPANS["upload"]:
+            if self.device.type != "cuda" or st is None or host.data_ptr() != st.host.data_ptr():
+                return host.to(self.device)
+            if st.device is None:
+                st.device = torch.empty(st.host.shape, dtype=st.host.dtype, device=self.device)
+                tracing.RECORDER.count_staging(0, 1)
+            st.device.copy_(st.host, non_blocking=True)
+            st.uploaded = torch.cuda.Event()
+            st.uploaded.record()
+            return st.device
 
     def _record(self, aux: StepAux, iters: torch.Tensor) -> None:
         """After a step: the last call's aux and the per-frame iterations
@@ -949,6 +1034,8 @@ class SageICP:
         with _CALL_SPANS["frame"]:
             buf = self.pad_chunk([points], None if timestamps is None else [timestamps])[0]
             self.state, pose, aux, _ = self._step(self.state, torch.from_numpy(buf))
+            if self._staged is not None:
+                self._staged.uploaded = self._step.loaded
             self._record(aux, aux.icp_iterations.clone())
             if block:
                 with _SPANS["wait.pose"]:
@@ -960,16 +1047,19 @@ class SageICP:
 
     def register_chunk(self, scans, timestamps: list | None = None) -> torch.Tensor:
         """Offline mode: W frames on one upload (chunk_step). scans: a list
-        of (n, 4) arrays or a padded (W, cap, 4|5) buffer from pad_chunk.
-        A tensor already on the device is stepped as it is, not copied
-        again (bench_torch.py stages the next chunk's upload ahead).
+        of (n, 4) arrays, staged by pad_chunk and copied without waiting
+        into a device buffer kept for the next chunk of W, or a padded (W,
+        cap, 4|5) buffer from pad_chunk, copied as it is. A tensor already
+        on the device is stepped as it is, not copied again (bench_torch.py
+        stages the next chunk's upload ahead).
         Appends the (W, 4, 4) device poses to the trajectory and returns
         them without waiting. The `chunk` span."""
         with _CALL_SPANS["chunk"]:
             if isinstance(scans, list):
-                scans = self.pad_chunk(scans, timestamps)
-            with _SPANS["upload"]:
-                dev_scans = torch.as_tensor(scans).to(self.device)
+                dev_scans = self._upload_chunk(torch.from_numpy(self.pad_chunk(scans, timestamps)))
+            else:
+                with _SPANS["upload"]:
+                    dev_scans = torch.as_tensor(scans).to(self.device)
             self.state, poses, iters, aux, _ = self._step.chunk(self.state, dev_scans)
             self._record(aux, iters)
             self.poses.append(poses)

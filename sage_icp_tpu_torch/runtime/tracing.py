@@ -12,8 +12,10 @@ spans:
 
     reinitialize        SageICP.reinitialize (a drive starts)
     frame, chunk        SageICP.register_frame, register_chunk
-    pad                 SageICP.pad_chunk
-    upload              the step's input copy (DeviceStep), register_chunk's copy to the device
+    pad                 SageICP.pad_chunk: the scans written into its staging buffer
+    upload              the step's input copy (DeviceStep), register_chunk's copy to the device,
+                        both enqueued without waiting, and pad_chunk's wait for the staging
+                        buffer's last copy (the copies' device time is in no span)
     launch.prepare, launch.block, launch.reanchor, launch.finish
                         the step's graph replays, or its eager pieces (DeviceStep)
     wait.status         the ICP loop's status read, one a block (registration.read_status)
@@ -62,6 +64,12 @@ frame's deskewed points into the row: the scan's valid rows from the
 third pose on, 0 before (pipeline.scan_head); 0 without deskew. A stamp
 writes a count given to it (`value`) into its slot (`into`) as it stamps,
 so no count is read back while frames are stepped.
+
+Staging counts. SageICP.pad_chunk counts, on the host, the scan rows
+it stages and the staging buffers it makes (register_chunk's device
+buffer too); they go to the frame of the span open around the count (a
+chunk's to its first frame), kept beside the frame's spans. Once the
+process is warm no buffer is made: the count of buffers is 0.
 
 Reading. RECORDER.read() copies each device's ring to the host in one
 transfer (it waits for the device) and returns a Snapshot: the frames'
@@ -159,6 +167,8 @@ class FrameRecord:
     diffusion_rounds: int | None  # its min-diffusion's rounds that changed an id
     deskewed_points: int | None  # the scan's rows deskew moved (0 without deskew, and before the third pose)
     spans: list  # the frame's host spans
+    staged_rows: int = 0  # scan rows SageICP.pad_chunk staged (a chunk's on its first frame)
+    staging_buffers: int = 0  # staging buffers made for it (0 once the process is warm)
 
     @property
     def stages_ms(self) -> dict | None:
@@ -298,6 +308,7 @@ class Recorder:
         self._local = _Thread()
         self._named: dict = {}
         self._rings: dict = {}
+        self._staging: list = [None] * frames  # (frame, rows, buffers), by frame
         self.drive = 0
 
     def span(self, name: str, opens_frame: bool = False) -> _Span:
@@ -356,6 +367,20 @@ class Recorder:
         if frame is not None and (frame.ring is None or frame.ring.rows.device.type == "cpu"):
             frame.counts.update({VEHICLE_CELLS: cells, DIFFUSION_ROUNDS: rounds})
 
+    def count_staging(self, rows: int, buffers: int) -> None:
+        """Scan rows staged and staging buffers made (module docstring),
+        added to the frame of the span open on this thread; outside every
+        frame nothing is kept."""
+        stack = self._local.stack
+        frame = stack.current.id if stack.current is not None else stack[-1][1] if stack else -1
+        if frame < 0:
+            return
+        k = frame % self.capacity
+        have = self._staging[k]
+        if have is not None and have[0] == frame:
+            rows, buffers = rows + have[1], buffers + have[2]
+        self._staging[k] = (frame, rows, buffers)
+
     def close_frame(self) -> None:
         """The frame's last stamp (END_FRAME) is launched: the device's
         frame counter moves on past it."""
@@ -390,6 +415,8 @@ class Recorder:
                 for slot, c in f.counts.items():
                     row[slot] = int(c)
             live = int(row[LIVE_ROWS]) if f.ring is not None or LIVE_ROWS in f.counts else None
+            staged = self._staging[f.id % self.capacity]
+            staged = staged if staged is not None and staged[0] == f.id else (f.id, 0, 0)
             n = int(row[PIECES]) if int(row[SEQ]) == f.seq else 0
             kept = min(n, MAX_PIECES)
             records.append(FrameRecord(
@@ -401,7 +428,8 @@ class Recorder:
                 vehicle_cells=int(row[VEHICLE_CELLS]) if n else None,
                 diffusion_rounds=int(row[DIFFUSION_ROUNDS]) if n else None,
                 deskewed_points=int(row[DESKEWED_POINTS]) if n else None,
-                spans=[s for s in by_frame.get(f.id, []) if s.drive == f.drive]))
+                spans=[s for s in by_frame.get(f.id, []) if s.drive == f.drive],
+                staged_rows=staged[1], staging_buffers=staged[2]))
         return Snapshot(records, spans)
 
 
