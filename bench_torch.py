@@ -16,8 +16,9 @@ line ONE JSON object with exactly bench.py's keys:
 Each phase is one continuous trajectory through the city world:
 BENCH_WARMUP frames through register_frame, one warm chunk of BENCH_CHUNK
 frames through register_chunk, then BENCH_FRAMES (rounded down to whole
-chunks) timed in chunks, padded before the clock starts; the clock stops
-when trajectory() has fetched every pose.
+chunks) timed in chunks, each a register_chunk on its list of scans (the
+SageICP pads and uploads it inside the clock, as every caller's chunk);
+the clock stops when trajectory() has fetched every pose.
   * value: PRESETS[BENCH_PRESET] (default "city") on
     build_city_world(seed=0, size=420, density=BENCH_DENSITY=0.7);
   * kitti_scale_*: PRESETS["kitti"], the production preset with its
@@ -27,14 +28,6 @@ Scans: render_scan(n_target=BENCH_POINTS=120000, max_range=min(100,
 config.max_range)) along make_trajectory(step=1.0), default_rng(0), as
 bench.py renders them. BENCH_QUPLOAD=1 (default) uploads int16 scans;
 BENCH_DENSE_GRID sets dense_grid on the first phase's preset.
-
-BENCH_OVERLAP=1 (default, on the card): every padded chunk is staged in
-pinned host memory before the clock starts, and chunk i+1's copy is issued
-on a side stream before chunk i is registered (register_chunk returns only
-after its per-frame and per-iteration syncs, so a copy issued after it
-would overlap nothing); the compute stream waits on the copy's event.
-BENCH_OVERLAP=0 hands register_chunk the pageable host buffer, which it
-copies on the compute stream. The two give the same trajectory.
 
 BENCH_DEVICE chooses the device: the card by default; without one the run
 stops with an error and never falls back to the CPU; "cpu" runs there.
@@ -80,7 +73,6 @@ class PhaseResult:
     trajectory: np.ndarray  # (N, 4, 4)
     iterations: np.ndarray  # (N,) ICP iterations per frame
     frames: int  # every registered frame: warm-up, warm chunk, timed
-    staging_s: float  # padding (and, with the overlap, pinning) the timed chunks, before the clock
 
 
 def settings() -> dict:
@@ -89,7 +81,7 @@ def settings() -> dict:
     return dict(
         warmup=int(get("BENCH_WARMUP", "10")), frames=int(get("BENCH_FRAMES", "60")),
         points=int(get("BENCH_POINTS", "120000")), chunk=int(get("BENCH_CHUNK", "30")),
-        qupload=get("BENCH_QUPLOAD", "1") == "1", overlap=get("BENCH_OVERLAP", "1") == "1",
+        qupload=get("BENCH_QUPLOAD", "1") == "1",
         preset=get("BENCH_PRESET", "city"), density=float(get("BENCH_DENSITY", "0.7")),
         dense_grid=None if "BENCH_DENSE_GRID" not in os.environ else get("BENCH_DENSE_GRID") == "1",
         kitti=get("BENCH_KITTI", "1") == "1", kitti_density=float(get("BENCH_KITTI_DENSITY", "1.3")),
@@ -127,32 +119,6 @@ def card_line(device: torch.device) -> str:
     return f"{torch.cuda.get_device_name(device)} | nvidia-smi: {smi}"
 
 
-def staged_uploads(pinned: list, device: torch.device):
-    """Yields each pinned chunk on the device. Chunk i+1's non_blocking
-    copy goes out on a side stream before chunk i is yielded, so it runs
-    while chunk i is registered; the compute stream waits on each copy's
-    event before it reads the chunk, and record_stream keeps the chunk's
-    memory from being reused before the compute stream is done with it."""
-    compute = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-
-    def issue(host):
-        with torch.cuda.stream(side):
-            dev = host.to(device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(side)
-        return dev, done
-
-    ahead = issue(pinned[0])
-    for i in range(len(pinned)):
-        dev, done = ahead
-        compute.wait_event(done)
-        dev.record_stream(compute)
-        if i + 1 < len(pinned):
-            ahead = issue(pinned[i + 1])
-        yield dev
-
-
 def check_guards(label: str, config, scans, totals: pl.StepAux, landmark_cells_dropped: int, est, gt) -> float:
     """Raises GuardError naming the phase and the counter when a capacity
     ran full, the run did not track, or work was dropped in any frame.
@@ -185,10 +151,10 @@ def check_guards(label: str, config, scans, totals: pl.StepAux, landmark_cells_d
 
 
 def run_phase(config, world, n_warmup: int, n_frames: int, n_points: int, chunk: int, label: str, device,
-              overlap: bool = True, scans=None) -> PhaseResult:
+              scans=None) -> PhaseResult:
     """One phase of the bench on `device` (see the module's docstring).
     scans: the phase's rendered scans (phase_length of them), or None to
-    render them from `world`. overlap applies on a CUDA device only."""
+    render them from `world`."""
     device = pl.resolve_device(device)
     n_total = phase_length(n_warmup, n_frames, chunk)
     n_frames -= n_frames % chunk
@@ -204,16 +170,9 @@ def run_phase(config, world, n_warmup: int, n_frames: int, n_points: int, chunk:
     odom.register_chunk(scans[n_warmup:n_warmup + chunk])
     odom.trajectory()
 
-    t_stage = time.perf_counter()
-    first = n_warmup + chunk
-    # copies: pad_chunk hands back the SageICP's staging buffer, which its next call rewrites
-    padded = [odom.pad_chunk(scans[i:i + chunk]).copy() for i in range(first, n_total, chunk)]
-    staged = overlap and device.type == "cuda" and bool(padded)
-    if staged:
-        padded = [torch.from_numpy(p).pin_memory() for p in padded]
     t0 = time.perf_counter()
-    for p in staged_uploads(padded, device) if staged else padded:
-        odom.register_chunk(p)
+    for i in range(n_warmup + chunk, n_total, chunk):
+        odom.register_chunk(scans[i:i + chunk])
     est = odom.trajectory()  # fetches every pose: the clock covers every frame end to end
     elapsed = time.perf_counter() - t0
 
@@ -223,7 +182,7 @@ def run_phase(config, world, n_warmup: int, n_frames: int, n_points: int, chunk:
     return PhaseResult(
         scans_per_sec=n_frames / elapsed, map_voxels=int((odom.state.map.counts > 0).sum()), ate_m=ate,
         totals=totals, landmark_cells_dropped=lmk, trajectory=est, iterations=odom.iteration_counts(),
-        frames=n_total, staging_s=t0 - t_stage)
+        frames=n_total)
 
 
 def main(scans: dict | None = None) -> tuple[dict, dict]:
@@ -241,12 +200,11 @@ def main(scans: dict | None = None) -> tuple[dict, dict]:
         if name not in scans:
             world = synthetic.build_city_world(seed=0, size=420.0, density=density)
         res = run_phase(config, world, s["warmup"], n_frames, s["points"], s["chunk"], label, device,
-                        s["overlap"], scans.get(name))
+                        scans.get(name))
         print(f"[{label}] {res.frames} frames, {n_frames - n_frames % s['chunk']} timed in chunks of {s['chunk']}: "
               f"{res.scans_per_sec} scans/s; ATE {res.ate_m} m; live voxels {res.map_voxels}; ICP iterations "
-              f"{int(res.iterations.sum())}; upload {'int16' if config.quantized_scan_upload else 'float32'}, "
-              f"overlap {'on' if s['overlap'] and device.type == 'cuda' else 'off'}; timed chunks staged in "
-              f"{res.staging_s} s before the clock", flush=True)
+              f"{int(res.iterations.sum())}; upload {'int16' if config.quantized_scan_upload else 'float32'}",
+              flush=True)
         phases[name] = res
 
     config = dataclasses.replace(pl.PRESETS[s["preset"]], quantized_scan_upload=s["qupload"])

@@ -135,15 +135,14 @@ Phases, each fatal on failure:
      rotation < 0.06 deg/m, ATE < 0.12 m, final error < 0.4 m, no drop),
      the two equal bit for bit, maps slot for slot, the grid consistent;
  13. the bench: bench_torch.main() in process at its defaults (both
-     phases, int16 upload, overlap on), its scans those of phases 4 and 6
-     followed by the rest of bench.py's renders: every key of bench.py's
-     JSON line, every guard passed (no drop over all frames, no landmark
-     cell dropped), ATE < 0.05 m in both phases, GN and the ICP step
-     launched in every slot of every block, the policy once a frame and
-     the radius count once a kitti frame; then the same with
-     BENCH_OVERLAP=0, and with SageICP's eager device step (graph=False),
-     whose trajectories equal the first run's bit for bit. Prints the
-     launches and scans/s;
+     phases, int16 upload), its scans those of phases 4 and 6 followed by
+     the rest of bench.py's renders: every key of bench.py's JSON line,
+     every guard passed (no drop over all frames, no landmark cell
+     dropped), ATE < 0.05 m in both phases, GN and the ICP step launched
+     in every slot of every block, the policy once a frame and the radius
+     count once a kitti frame; then the same with SageICP's eager device
+     step (graph=False), whose trajectories equal the first run's bit for
+     bit. Prints the launches and scans/s;
  14. the captured step: on phase 4's, phase 6's, phase 9's (skewed, deskew
      on) and phase 6's scans with dense_grid, SageICP with the graph step
      and with the eager one over 24 frames by register_frame and 16 by
@@ -1803,10 +1802,10 @@ def bench_py_keys() -> list:
 
 
 def bench_phase(rendered: dict) -> None:
-    """Phase 13: bench_torch.main() at its defaults, then with
-    BENCH_OVERLAP=0, on the same scans. rendered: {phase: (the scans
-    phases 4 and 6 rendered, their render generator)}; the rest of each
-    phase's scans are rendered on."""
+    """Phase 13: bench_torch.main() at its defaults, then with the eager
+    device step, on the same scans. rendered: {phase: (the scans phases 4
+    and 6 rendered, their render generator)}; the rest of each phase's
+    scans are rendered on."""
     import bench_torch
     from sage_icp_tpu_torch.models import pipeline as pl
     from sage_icp_tpu_torch.models.pipeline import PRESETS
@@ -1825,50 +1824,43 @@ def bench_phase(rendered: dict) -> None:
             scans[name] = bench_torch.render_scans(world, cfg, gt, s["points"], rng, done)
         print(f"bench: {sum(len(v) for v in scans.values())} scans, {sum(len(d) for d, _ in rendered.values())} "
               f"of them from phases 4 and 6, the rest rendered in {time.perf_counter() - t0:.1f} s", flush=True)
-        runs = {}
-        for overlap in ("1", "0"):
-            os.environ["BENCH_OVERLAP"] = overlap
-            reset_counts()
-            try:
-                out, phases = bench_torch.main(scans)
-            except bench_torch.GuardError as e:
-                fail(f"bench_torch.py, BENCH_OVERLAP={overlap}: {e}")
-            launches = counts()
-            label = f"bench_torch.py, BENCH_OVERLAP={overlap}"
-            if list(out) != bench_py_keys():
-                fail(f"{label}: JSON keys {list(out)}, bench.py's {bench_py_keys()}")
-            for name, res in phases.items():
-                if not res.ate_m < 0.05:
-                    fail(f"{label}: {name} phase ATE {res.ate_m} m")
-            city, kitti = phases["city"], phases["kitti"]
-            expect_launches(label, launches, int(city.iterations.sum() + kitti.iterations.sum()),
-                            city.frames + kitti.frames, kitti.frames)
-            print(f"{label}: launches {launches} over {city.frames} city and {kitti.frames} kitti frames; "
-                  f"city {city.scans_per_sec} scans/s, kitti {kitti.scans_per_sec} scans/s", flush=True)
-            runs[overlap] = phases
+        label = "bench_torch.py"
+        reset_counts()
+        try:
+            out, captured_run = bench_torch.main(scans)
+        except bench_torch.GuardError as e:
+            fail(f"{label}: {e}")
+        launches = counts()
+        if list(out) != bench_py_keys():
+            fail(f"{label}: JSON keys {list(out)}, bench.py's {bench_py_keys()}")
+        for name, res in captured_run.items():
+            if not res.ate_m < 0.05:
+                fail(f"{label}: {name} phase ATE {res.ate_m} m")
+        city, kitti = captured_run["city"], captured_run["kitti"]
+        expect_launches(label, launches, int(city.iterations.sum() + kitti.iterations.sum()),
+                        city.frames + kitti.frames, kitti.frames)
+        print(f"{label}: launches {launches} over {city.frames} city and {kitti.frames} kitti frames; "
+              f"city {city.scans_per_sec} scans/s, kitti {kitti.scans_per_sec} scans/s", flush=True)
         # the same bench with the eager device step (SageICP built with
         # graph=False: no knob of the bench), against the captured one
-        os.environ["BENCH_OVERLAP"] = "1"
         captured = pl.SageICP
         pl.SageICP = functools.partial(captured, graph=False)
         try:
-            out, runs["eager"] = bench_torch.main(scans)
+            _, eager_run = bench_torch.main(scans)
         except bench_torch.GuardError as e:
-            fail(f"bench_torch.py with the eager step: {e}")
+            fail(f"{label} with the eager step: {e}")
         finally:
             pl.SageICP = captured
-        print(f"bench_torch.py, graph off (eager device step), BENCH_OVERLAP=1: city "
-              f"{runs['eager']['city'].scans_per_sec} scans/s, kitti {runs['eager']['kitti'].scans_per_sec} scans/s "
-              f"(graph on: {runs['1']['city'].scans_per_sec}, {runs['1']['kitti'].scans_per_sec})", flush=True)
+        print(f"{label}, graph off (eager device step): city {eager_run['city'].scans_per_sec} scans/s, kitti "
+              f"{eager_run['kitti'].scans_per_sec} scans/s (graph on: {city.scans_per_sec}, "
+              f"{kitti.scans_per_sec})", flush=True)
         for name in ("city", "kitti"):
-            for other in ("0", "eager"):
-                a, b = runs["1"][name].trajectory, runs[other][name].trajectory
-                if not np.array_equal(a, b):
-                    fail(f"bench {name} phase: {other} differs from the captured run with the overlap: max |diff| "
-                         f"{np.abs(a - b).max()}")
-        print(f"bench: overlap on and off, and the eager step, give the same trajectories bit for bit in both "
-              f"phases; phase 13 took "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+            a, b = captured_run[name].trajectory, eager_run[name].trajectory
+            if not np.array_equal(a, b):
+                fail(f"bench {name} phase: the eager step differs from the captured run: max |diff| "
+                     f"{np.abs(a - b).max()}")
+        print(f"bench: the eager step gives the captured run's trajectories bit for bit in both phases; phase 13 "
+              f"took {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         for k in [k for k in os.environ if k.startswith("BENCH_")]:
             del os.environ[k]

@@ -587,8 +587,8 @@ def _zero_aux(device) -> StepAux:
 def _fold_into(totals: StepAux, aux: StepAux) -> None:
     """_fold_aux in place on zero-started totals (the same values: every
     occupancy stat is >= 0)."""
-    for f, t, a in zip(StepAux._fields, totals, aux):
-        t.copy_(a if f in _AUX_LAST else torch.maximum(t, a) if f in _AUX_MAX else t + a)
+    for t, v in zip(totals, _fold_aux(totals, aux)):
+        t.copy_(v)
 
 
 def _capture_graph(fn, stream: torch.cuda.Stream) -> torch.cuda.CUDAGraph:
@@ -1002,15 +1002,15 @@ class SageICP:
             tracing.RECORDER.count_staging(staged, int(made))
         return st.array
 
-    def _upload_chunk(self, host: torch.Tensor) -> torch.Tensor:
-        """register_chunk's copy of a pad_chunk result to the card, into
-        the staging buffer's device twin (made at its first chunk), without
+    def _upload_chunk(self) -> torch.Tensor:
+        """register_chunk's copy of the staging buffer pad_chunk filled last
+        to the card, into its device twin (made at its first chunk), without
         waiting; the staging buffer's `uploaded` is recorded after it. On
         the CPU the buffer is stepped as it is. The `upload` span."""
         st = self._staged
         with _SPANS["upload"]:
-            if self.device.type != "cuda" or st is None or host.data_ptr() != st.host.data_ptr():
-                return host.to(self.device)
+            if self.device.type != "cuda":
+                return st.host
             if st.device is None:
                 st.device = torch.empty(st.host.shape, dtype=st.host.dtype, device=self.device)
                 tracing.RECORDER.count_staging(0, 1)
@@ -1045,22 +1045,17 @@ class SageICP:
             self.poses.append(pose)
         return pose
 
-    def register_chunk(self, scans, timestamps: list | None = None) -> torch.Tensor:
+    def register_chunk(self, scans: list, timestamps: list | None = None) -> torch.Tensor:
         """Offline mode: W frames on one upload (chunk_step). scans: a list
-        of (n, 4) arrays, staged by pad_chunk and copied without waiting
-        into a device buffer kept for the next chunk of W, or a padded (W,
-        cap, 4|5) buffer from pad_chunk, copied as it is. A tensor already
-        on the device is stepped as it is, not copied again (bench_torch.py
-        stages the next chunk's upload ahead).
-        Appends the (W, 4, 4) device poses to the trajectory and returns
-        them without waiting. The `chunk` span."""
+        of W (n, 4) arrays, staged by pad_chunk and copied without waiting
+        into a device buffer kept for the next chunk of W; an array or a
+        tensor raises TypeError. Appends the (W, 4, 4) device poses to the
+        trajectory and returns them without waiting. The `chunk` span."""
+        if not isinstance(scans, list):
+            raise TypeError(f"register_chunk takes a list of (n, 4) scans, not a {type(scans).__name__}")
         with _CALL_SPANS["chunk"]:
-            if isinstance(scans, list):
-                dev_scans = self._upload_chunk(torch.from_numpy(self.pad_chunk(scans, timestamps)))
-            else:
-                with _SPANS["upload"]:
-                    dev_scans = torch.as_tensor(scans).to(self.device)
-            self.state, poses, iters, aux, _ = self._step.chunk(self.state, dev_scans)
+            self.pad_chunk(scans, timestamps)
+            self.state, poses, iters, aux, _ = self._step.chunk(self.state, self._upload_chunk())
             self._record(aux, iters)
             self.poses.append(poses)
         return poses

@@ -9,8 +9,9 @@ on a drop that only the first timed chunk has (bench.py reads the last
 chunk's counters and misses it); the bench's calls through the JAX
 package's SageICP on the same scans give the same live voxels and
 per-frame ICP iterations, ATE within 1e-5 m and poses within 1e-4
-(test_torch_pipeline.py's carried-step tolerance); register_chunk steps a
-tensor already on its device without a copy."""
+(test_torch_pipeline.py's carried-step tolerance); the timed chunks go
+through SageICP's own staging (register_chunk on lists of scans), which
+refuses a padded array or a tensor."""
 
 import dataclasses
 import json
@@ -24,6 +25,7 @@ import torch
 import bench_torch
 from sage_icp_tpu.models import pipeline as jpl
 from sage_icp_tpu_torch.models import pipeline as tpl
+from sage_icp_tpu_torch.runtime import tracing
 from sage_icp_tpu_torch.utils import synthetic
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -160,15 +162,15 @@ def test_drop_in_first_timed_chunk_only_is_caught(world, scans, monkeypatch):
 def test_bench_calls_match_jax(phase, scans):
     """bench.py's calls, in order, through the JAX package's SageICP on
     the same scans: register_frame for the warm-up, register_chunk and
-    trajectory() for the warm chunk, pad_chunk and register_chunk for each
-    timed chunk, trajectory()."""
+    trajectory() for the warm chunk, register_chunk for each timed chunk,
+    trajectory()."""
     jodom = jpl.SageICP(jpl.SageConfig(**TINY))
     for i in range(WARMUP):
         jodom.register_frame(scans[i])
     jodom.register_chunk(scans[WARMUP:WARMUP + CHUNK])
     jodom.trajectory()
     for i in range(WARMUP + CHUNK, len(scans), CHUNK):
-        jodom.register_chunk(jodom.pad_chunk(scans[i:i + CHUNK]))
+        jodom.register_chunk(scans[i:i + CHUNK])
     est = jodom.trajectory()
     np.testing.assert_array_equal(phase.iterations, jodom.iteration_counts())
     assert phase.map_voxels == int(np.asarray(jodom.state.map.counts > 0).sum())
@@ -180,22 +182,38 @@ def test_bench_calls_match_jax(phase, scans):
     assert int(jodom.aux_totals().overflow_total()) == 0
 
 
-def test_register_chunk_steps_a_device_tensor_without_a_copy(scans, monkeypatch):
-    """The same storage reaches the device step's chunk (DeviceStep.chunk,
-    which copies each frame into its input buffer): the bench's staged
-    uploads are not copied a second time as a whole."""
+@pytest.mark.parametrize("form", ["array", "tensor"])
+def test_register_chunk_refuses_a_padded_buffer(scans, form):
+    """register_chunk takes the list of scans only: a padded buffer handed
+    to it would be padded again, row by row."""
     odom = tpl.SageICP(tpl.SageConfig(**TINY), device="cpu")
-    buf = torch.from_numpy(odom.pad_chunk(scans[:1]))
-    seen = []
-    step = tpl.DeviceStep.chunk
+    buf = odom.pad_chunk(scans[:1]).copy()
+    with pytest.raises(TypeError, match="list of"):
+        odom.register_chunk(buf if form == "array" else torch.from_numpy(buf))
+    assert len(odom.trajectory()) == 0
 
-    def spy(self, state, dev_scans):
-        seen.append(dev_scans)
-        return step(self, state, dev_scans)
 
-    monkeypatch.setattr(tpl.DeviceStep, "chunk", spy)
-    odom.register_chunk(buf)
-    odom.register_chunk(buf.numpy())
-    assert seen[0].data_ptr() == buf.data_ptr() and seen[0].dtype == torch.int16
-    assert torch.equal(seen[1], buf)
-    assert len(odom.trajectory()) == 2
+def test_timed_chunks_are_staged_by_the_sage_icp(world, scans, monkeypatch):
+    """run_phase hands each timed chunk to register_chunk as its list of
+    scans: the recorder counts the chunk's rows on its first frame (a
+    warm-up frame, the warm chunk and two timed chunks, of two frames
+    each)."""
+    chunk, frames = 2, 4
+    gt = synthetic.make_trajectory(bench_torch.phase_length(WARMUP, frames, chunk), step=1.0)
+    longer = bench_torch.render_scans(world, tpl.SageConfig(**TINY), gt, POINTS, np.random.default_rng(0),
+                                      scans)
+    made = []
+
+    class Recorded(tpl.SageICP):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    monkeypatch.setattr(tpl, "SageICP", Recorded)
+    bench_torch.run_phase(tpl.SageConfig(**TINY), None, WARMUP, frames, POINTS, chunk, "city", "cpu",
+                          scans=longer)
+    (odom,) = made
+    rows = [len(s) for s in longer]
+    firsts = range(WARMUP, len(longer), chunk)  # the warm chunk's and the timed chunks' first frames
+    want = rows[:WARMUP] + [sum(rows[i:i + chunk]) if i in firsts else 0 for i in range(WARMUP, len(longer))]
+    assert [f.staged_rows for f in tracing.RECORDER.read().frames_of([odom.drive])] == want

@@ -32,13 +32,12 @@ within 5e-4 of SageICP (tests/test_parallel.py's bound), two NCCL ranks
 on two cards, captured, equal to each other bit for bit and within 5e-3 m
 of SageICP; the reference step kernel bit for bit, and the reference
 loop's captured step equal to its eager one bit for bit; the poses
-stepped from the pinned staging buffer (register_frame with and without
-blocking, register_chunk) equal to those from a fresh pageable pad bit
-for bit.
+stepped from the pinned staging buffer by register_frame without
+blocking and by register_chunk equal to those of register_frame with
+blocking bit for bit.
 
 The seeded input builders here are shared with tests/test_torch_kernels.py
-and tests/test_torch_dynfilter.py, and `fresh_pad` (pad_chunk as it was
-before the staging buffer) with tests/test_torch_staging.py.
+and tests/test_torch_dynfilter.py.
 """
 
 import dataclasses
@@ -225,29 +224,6 @@ def sort_planes(seed, n, unsigned):
         k1 = rng.choice(np.array([-(2**31), -7, 0, 3, 2**31 - 1], np.int32), n)
         k2 = rng.integers(-2, 3, n).astype(np.int32)
     return [k1, k2, np.arange(n, dtype=np.int32), rng.normal(size=n).astype(np.float32)]
-
-
-def fresh_pad(cfg, scans, timestamps=None) -> np.ndarray:
-    """pad_chunk as it was before the staging buffer: a fresh buffer of the
-    sentinel a call, each scan's rows (and time lane) copied in."""
-    cap = cfg.scan_capacity
-    lanes = 5 if cfg.deskew else 4
-    if cfg.quantized_scan_upload:
-        buf = np.full((len(scans), cap, lanes), tpl.QSCAN_INVALID, dtype=np.int16)
-    else:
-        buf = np.full((len(scans), cap, lanes), tscan.INVALID_COORD, dtype=np.float32)
-    for i, s in enumerate(scans):
-        n = min(len(s), cap)
-        rows = np.asarray(s[:n, :4], dtype=np.float32)
-        if lanes == 5:
-            ts = timestamps[i] if timestamps is not None else None
-            ts = azimuth_timestamps(rows[:, :3]) if ts is None else ts[:n]
-            rows = np.concatenate([rows, np.asarray(ts, np.float32)[:, None]], axis=1)
-        if cfg.quantized_scan_upload:
-            tpl._quantize_scan_host(rows, buf[i])
-        else:
-            buf[i, :n] = rows
-    return buf
 
 
 def pad_scan(pts, cap):
@@ -1009,31 +985,29 @@ def test_staged_uploads_step_the_same_poses_on_card(card):
     waiting. A kitti-shaped 40-frame drive (SageICP()) steps the same poses
     and iterations, bit for bit, through register_frame with block=True,
     register_frame with block=False call after call (each pad waits on the
-    last upload's event), register_chunk on lists of 8 scans, and
-    register_chunk on each chunk's fresh pageable pad; the staging buffers
-    are pinned, and each is made at its first call only."""
+    last upload's event), and register_chunk on lists of 8 scans; the
+    staging buffers are pinned, and each is made at its first call only."""
     world = kitti_world()
     gt = synthetic.make_trajectory(40, step=1.0)
     rng = np.random.default_rng(0)
     scans = [synthetic.render_scan(*world, gt[i], rng, n_target=120_000) for i in range(40)]
     chunks = [scans[i:i + 8] for i in range(0, 40, 8)]
     runs = {}
-    for way in ("block", "no_block", "chunk", "pageable"):
+    for way in ("block", "no_block", "chunk"):
         odom = tpl.SageICP()
         if way in ("block", "no_block"):
             held = [odom.register_frame(s, block=way == "block") for s in scans]
             assert all(torch.is_tensor(p) != (way == "block") for p in held)
-        for c in chunks if way in ("chunk", "pageable") else ():
-            odom.register_chunk(c if way == "chunk" else fresh_pad(odom.config, c))
+        for c in chunks if way == "chunk" else ():
+            odom.register_chunk(c)
         runs[way] = odom.trajectory(), odom.iteration_counts()
         frames = tracing.RECORDER.read().frames_of([odom.drive])
-        made = {"block": [1] + [0] * 39, "no_block": [1] + [0] * 39, "chunk": [2] + [0] * 39,
-                "pageable": [0] * 40}[way]
+        made = {"block": [1] + [0] * 39, "no_block": [1] + [0] * 39, "chunk": [2] + [0] * 39}[way]
         assert [f.staging_buffers for f in frames] == made, (way, [f.staging_buffers for f in frames])
         if way == "chunk":  # a host buffer and its device twin
             st = odom._staging[(8, 4, torch.float32)]
             assert st.host.is_pinned() and st.device.device.type == "cuda"
-    for way in ("no_block", "chunk", "pageable"):
+    for way in ("no_block", "chunk"):
         np.testing.assert_array_equal(runs[way][0], runs["block"][0])
         np.testing.assert_array_equal(runs[way][1], runs["block"][1])
     assert torch.from_numpy(odom.pad_chunk(scans[:1])).is_pinned()

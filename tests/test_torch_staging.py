@@ -1,10 +1,11 @@
 """SageICP's staging buffer (models/pipeline.py): pad_chunk writes its
 scans into a host buffer of the SageICP's own, one for each chunk length,
 rewriting only the rows that change, and returns that buffer. Held here
-against the fresh buffer a call that pad_chunk built before
-(tests/test_torch_cuda.py's `fresh_pad`, kept as it was), byte for byte, over runs of calls whose scans grow and
-shrink; the recorder's staging counts; and the trajectories stepped from
-the staging buffer against those stepped from the fresh one, bit for bit.
+against the fresh buffer a call that pad_chunk built before (`fresh_pad`,
+kept as it was), byte for byte, over runs of calls whose scans grow and
+shrink; the recorder's staging counts; and the trajectories SageICP steps
+from the staging buffer against chunk_step's on the fresh pads, bit for
+bit.
 This file imports no JAX.
 """
 
@@ -14,9 +15,10 @@ import torch
 
 from sage_icp_tpu_torch.datasets.kitti import azimuth_timestamps
 from sage_icp_tpu_torch.models import pipeline as tpl
+from sage_icp_tpu_torch.ops import scan as tscan
 from sage_icp_tpu_torch.runtime import tracing
 from sage_icp_tpu_torch.utils import synthetic
-from tests.test_torch_cuda import TINY_CONFIG, fresh_pad
+from tests.test_torch_cuda import TINY_CONFIG
 
 # scan rows of each call, slot by slot: growing, shrinking, empty, past the capacity
 RUNS = {1: [[900], [2500], [40], [0], [5000], [1200]],
@@ -30,6 +32,29 @@ def few_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
+
+
+def fresh_pad(cfg, scans, timestamps=None) -> np.ndarray:
+    """pad_chunk as it was before the staging buffer: a fresh buffer of the
+    sentinel a call, each scan's rows (and time lane) copied in."""
+    cap = cfg.scan_capacity
+    lanes = 5 if cfg.deskew else 4
+    if cfg.quantized_scan_upload:
+        buf = np.full((len(scans), cap, lanes), tpl.QSCAN_INVALID, dtype=np.int16)
+    else:
+        buf = np.full((len(scans), cap, lanes), tscan.INVALID_COORD, dtype=np.float32)
+    for i, s in enumerate(scans):
+        n = min(len(s), cap)
+        rows = np.asarray(s[:n, :4], dtype=np.float32)
+        if lanes == 5:
+            ts = timestamps[i] if timestamps is not None else None
+            ts = azimuth_timestamps(rows[:, :3]) if ts is None else ts[:n]
+            rows = np.concatenate([rows, np.asarray(ts, np.float32)[:, None]], axis=1)
+        if cfg.quantized_scan_upload:
+            tpl._quantize_scan_host(rows, buf[i])
+        else:
+            buf[i, :n] = rows
+    return buf
 
 
 def random_scan(rng, n, dtype):
@@ -81,13 +106,31 @@ def test_the_next_call_overwrites_the_buffer():
     assert odom.pad_chunk(first).tobytes() == kept.tobytes()
 
 
+CHUNKS = ((0, 3), (3, 5))
+
+
+def chunk_step_on_fresh_pads(cfg, scans, stamps):
+    """chunk_step (tests/test_torch_device_step.py holds make_chunk_step to
+    it bit for bit) over each chunk's fresh pad: the poses, the per-frame
+    iterations and the totals over both chunks."""
+    state, poses, iters, totals = tpl.init_state(cfg, "cpu"), [], [], None
+    for lo, hi in CHUNKS:
+        buf = torch.from_numpy(fresh_pad(cfg, scans[lo:hi], None if stamps is None else stamps[lo:hi]))
+        state, p, it, agg, _ = tpl.chunk_step(state, buf, cfg)
+        poses.append(p)
+        iters.append(it)
+        totals = tpl._fold_aux(totals, agg)
+    return torch.cat(poses).numpy(), torch.cat(iters).numpy(), [a.numpy() for a in totals]
+
+
 @pytest.fixture(scope="module")
 def drives():
     """Five frames of a small city drive stepped three ways on the CPU,
-    deskew off and on (the drive's own point times): register_frame, then
-    register_chunk on a list of scans (chunks of 3 and 2), then
-    register_chunk on each chunk's fresh pad; {deskew: (the three
-    SageICPs, the scans, the recorder's snapshot)}."""
+    deskew off and on (the drive's own point times): SageICP's
+    register_frame, SageICP's register_chunk on lists of scans (chunks of
+    3 and 2), and chunk_step on each chunk's fresh pad; {deskew: (the two
+    SageICPs, chunk_step's poses, iterations and totals, the scans, the
+    recorder's snapshot)}."""
     world = synthetic.build_city_world(seed=0, size=160.0, density=0.5)
     gt = synthetic.make_trajectory(5, step=1.0)
     rng = np.random.default_rng(0)
@@ -101,27 +144,23 @@ def drives():
         for k, s in enumerate(scans):
             per_frame.register_frame(s, None if ts is None else ts[k])
         chunked = tpl.SageICP(cfg, device="cpu")
-        for lo, hi in ((0, 3), (3, 5)):
+        for lo, hi in CHUNKS:
             chunked.register_chunk(scans[lo:hi], None if ts is None else ts[lo:hi])
-        fresh = tpl.SageICP(cfg, device="cpu")
-        for lo, hi in ((0, 3), (3, 5)):
-            fresh.register_chunk(fresh_pad(cfg, scans[lo:hi], None if ts is None else ts[lo:hi]))
-        out[deskew] = (per_frame, chunked, fresh), scans, tracing.RECORDER.read()
+        out[deskew] = (per_frame, chunked), chunk_step_on_fresh_pads(cfg, scans, ts), scans, tracing.RECORDER.read()
     return out
 
 
 @pytest.mark.parametrize("deskew", [False, True])
 def test_trajectories_from_the_staging_buffer_equal_the_fresh_pads(drives, deskew):
     """register_frame and register_chunk from the staging buffer step the
-    same poses, iterations and totals, bit for bit, as register_chunk on
-    the fresh pad's ndarray."""
-    (per_frame, chunked, fresh), _, _ = drives[deskew]
-    want = fresh.trajectory()
-    assert len(want) == 5 and np.isfinite(want).all()
-    for odom in (per_frame, chunked):
-        np.testing.assert_array_equal(odom.trajectory(), want)
-        np.testing.assert_array_equal(odom.iteration_counts(), fresh.iteration_counts())
-        for a, b in zip(odom.aux_totals(), fresh.aux_totals()):
+    same poses, iterations and totals, bit for bit, as chunk_step on the
+    fresh pads."""
+    sageicps, (poses, iters, totals), _, _ = drives[deskew]
+    assert len(poses) == 5 and np.isfinite(poses).all()
+    for odom in sageicps:
+        np.testing.assert_array_equal(odom.trajectory(), poses)
+        np.testing.assert_array_equal(odom.iteration_counts(), iters)
+        for a, b in zip(odom.aux_totals(), totals):
             np.testing.assert_array_equal(a, b)
 
 
@@ -129,9 +168,8 @@ def test_trajectories_from_the_staging_buffer_equal_the_fresh_pads(drives, deske
 def test_the_recorder_counts_rows_staged_and_buffers_made(drives, deskew):
     """Each frame of register_frame counts its scan's rows and a chunk's
     first frame the chunk's rows; one buffer is made for each chunk length
-    (1, 3, 2), at its first call, and none after. A padded ndarray handed
-    to register_chunk stages nothing."""
-    (per_frame, chunked, fresh), scans, snap = drives[deskew]
+    (1, 3, 2), at its first call, and none after."""
+    (per_frame, chunked), _, scans, snap = drives[deskew]
     cap = per_frame.config.scan_capacity
     rows = [min(len(s), cap) for s in scans]
     frames = snap.frames_of([per_frame.drive])
@@ -140,5 +178,3 @@ def test_the_recorder_counts_rows_staged_and_buffers_made(drives, deskew):
     frames = snap.frames_of([chunked.drive])
     assert [f.staged_rows for f in frames] == [sum(rows[:3]), 0, 0, sum(rows[3:]), 0]
     assert [f.staging_buffers for f in frames] == [1, 0, 0, 1, 0]
-    frames = snap.frames_of([fresh.drive])
-    assert [(f.staged_rows, f.staging_buffers) for f in frames] == [(0, 0)] * 5
