@@ -9,9 +9,9 @@
 With --root, only the kernel times of the port checked out at DIR (the
 parent commit unpacked with `git archive`, say) are taken, at phase 3's
 shapes on phase 3's inputs and, when build/drive_rows.pt exists (phase 7
-writes it), on the kitti drive's own policy and radius-count rows and
-its last frame's dynamic filter, and printed as one JSON line; nothing
-is checked. Run it on both trees in one
+writes it), on the kitti drive's own policy and radius-count rows, its
+last frame's dynamic filter and its row build at the guess (corr_setup),
+and printed as one JSON line; nothing is checked. Run it on both trees in one
 call to compare them.
 
 Phases, each fatal on failure:
@@ -38,8 +38,9 @@ Phases, each fatal on failure:
      frames, ATE < 0.05 m, and launch counts showing that every slot of
      every block of ICP iterations ran the GN and ICP step kernels (a
      block is ops/registration.py's BLOCK_ITERATIONS slots; at least one
-     a frame, enough for its iterations) and every insert the policy
-     kernel. The kernels count their own launches on the card
+     a frame, enough for its iterations), every insert the policy
+     kernel, and every row build (a frame's and each re-anchor's, counted
+     from the recorder's spans) the candidate planes' kernel. The kernels count their own launches on the card
      (ops/cuda_lib.py), so a launch replayed from a CUDA graph is counted
      in the run that replays it. SageICP on the card is the captured step (CUDA graphs,
      models/pipeline.py::DeviceStep), so are phases 6-13 unless named;
@@ -61,7 +62,12 @@ Phases, each fatal on failure:
      the rows' shape and the kernel's time, saved to build/drive_rows.pt
      with the frame's filter input; the min-diffusion on the frame's
      vehicle sort keys and at the cap, bit for bit, kernel and plain
-     times (its row of the kernel table);
+     times (its row of the kernel table); the candidate planes of the
+     frame's row build at its guess (corr_setup's call, captured), the
+     kernel against its plain version bit for bit with the same found
+     pairs, in one launch, kernel and plain times beside the bound (its
+     row of the kernel table), corr_setup's arguments saved to
+     build/drive_rows.pt;
   8. with --profile only: each path's host phases, device busy share and
      kernels (torch.profiler) on five further frames, the port's own
      kernels listed apart; the deskew path's too (after phase 9), and
@@ -177,9 +183,10 @@ Phases, each fatal on failure:
      pieces than a row keeps. After every piece the frame's row is read
      back; each stamp's time is taken from it, and the frame's stamps
      replayed through tracing.stamp_row with those times (and the
-     min-diffusion's two counts from the row after prepare) must give
-     every row read, and the recorder's record, exactly. The live rows equal
-     the loop's count (icp_kernel.I_LIVE_ROWS), the card's frame counter
+     min-diffusion's two counts from the row after prepare, and the
+     loop's found pairs after each row build in its close stamp) must
+     give every row read, and the recorder's record, exactly. The live
+     rows equal the loop's count (icp_kernel.I_LIVE_ROWS), the card's frame counter
      the frames begun, and the stamps launched those the pieces make; a
      step that raises (a wrong-shaped input) leaves no frame, and the
      frames after it keep their own rows.
@@ -673,6 +680,15 @@ def time_tree(dev) -> dict:
             fpts, fok = to(rows["filter"])
             record("filter_dynamic_vehicles kitti drive frame",
                    lambda: dyn.filter_dynamic_vehicles(fpts, fok, PRESETS["kitti"]))
+        if "corr_setup" in rows:
+            from sage_icp_tpu_torch.ops import correspondence_fast as cf
+            from sage_icp_tpu_torch.ops import hashmap as hm
+
+            c = rows["corr_setup"]
+            state, tables = hm.MapState(*to(c["map"])), cf.ProbeTables(*to(c["tables"]))
+            query, valid = to([c["query"], c["valid"]])
+            record("corr_setup kitti drive rows", lambda: cf.corr_setup(
+                state, tables, query, valid, c["voxel_size"], c["probe_depth"], **c["fast"]))
     return times
 
 
@@ -683,32 +699,53 @@ def ate_of(est, gt) -> float:
     return float(np.sqrt(np.mean(np.square(errs))))
 
 
+_REANCHORS_AT_RESET = [0]
+
+
+def reanchor_spans() -> int:
+    """The step's reanchor pieces the recorder holds (`launch.reanchor`
+    spans, runtime/tracing.py): each rebuilds the rows once."""
+    from sage_icp_tpu_torch.runtime import tracing
+
+    return sum(s.name == "launch.reanchor" for s in tracing.RECORDER.read().spans)
+
+
 def reset_counts() -> None:
     """Every kernel's launch count to 0. The counts live on the card and
     each kernel adds its own launches (ops/cuda_lib.py), those replayed
-    from a captured graph too."""
+    from a captured graph too. The step's reanchors are counted from here
+    too."""
     from sage_icp_tpu_torch.ops import cuda_lib
 
     cuda_lib.reset_launches()
+    _REANCHORS_AT_RESET[0] = reanchor_spans()
 
 
 def counts() -> dict:
-    """The kernel launches on the card since reset_counts."""
+    """The kernel launches on the card since reset_counts, and the step's
+    reanchors since then ("reanchors")."""
     from sage_icp_tpu_torch.ops import cuda_lib
 
-    return cuda_lib.launches()
+    return {**cuda_lib.launches(), "reanchors": reanchor_spans() - _REANCHORS_AT_RESET[0]}
 
 
-def expect_launches(name, launches, iterations, frames, prepares, reference: bool = False) -> None:
+def expect_launches(name, launches, iterations, frames, prepares, reference: bool = False,
+                    solves: int | None = None) -> None:
     """The ICP step kernel in whole blocks of BLOCK_ITERATIONS (at least
     one block a frame, enough slots for the `iterations` the frames
     took), GN once per ICP step, the policy once a frame (the insert),
     the radius count and the min-diffusion once per prepare (the filter:
     once a frame, and once more in each of IcpTimer's replays), the NN
-    and sort kernels not at all. With `reference` (fast correspondences off) the reference step
-    kernel in whole blocks of REF_BLOCK_ITERATIONS takes the ICP step's
-    place, and neither GN nor the ICP step runs. Every count is the
-    kernels' own, read from the card."""
+    and sort kernels not at all. The candidate planes (corr_planes) once
+    per row build: a build at each solve's guess (`solves`: the frames'
+    and IcpTimer's replays'; the frames by default) and one at each
+    re-anchor, exactly that when `launches` holds the step's reanchors
+    (counts()), else between the solves and the blocks (a worker rank's
+    launches, or a timer's, whose re-anchors are in no span). With
+    `reference` (fast correspondences off) the reference step kernel in
+    whole blocks of REF_BLOCK_ITERATIONS takes the ICP step's place, and
+    neither GN, the ICP step nor the candidate planes runs. Every count
+    is the kernels' own, read from the card."""
     from sage_icp_tpu_torch.ops import registration as reg
 
     step, block = ("icp_ref_step", reg.REF_BLOCK_ITERATIONS) if reference else ("icp_step", reg.BLOCK_ITERATIONS)
@@ -721,6 +758,11 @@ def expect_launches(name, launches, iterations, frames, prepares, reference: boo
     expect = dict(fused_gn_iteration=frozen, icp_step=frozen, icp_ref_step=slots if reference else 0,
                   apply_policy=frames, radius_count=prepares, min_diffusion=prepares, fused_semantic_nn=0,
                   bitonic_sort_planes=0)
+    builds = 0 if reference else (frames if solves is None else solves)
+    if "reanchors" in launches:
+        expect["corr_planes"] = builds + (0 if reference else launches["reanchors"])
+    elif not builds <= launches["corr_planes"] <= (0 if reference else blocks):
+        fail(f"{name}: corr_planes launched {launches['corr_planes']} times for {builds} solves in {blocks} blocks")
     for kernel, count in expect.items():
         if launches[kernel] != count:
             fail(f"{name}: {kernel} launched {launches[kernel]} times, expected {count}")
@@ -838,21 +880,66 @@ def capture(module, name: str, fn):
     return result, seen[0]
 
 
-def drive_rows(odom, buf, rargs, filter_args) -> None:
+def planes_row(cargs) -> dict:
+    """Phase 7's candidate planes on the kitti drive's rows (cargs:
+    candidate_planes' arguments at the frame's guess, as corr_setup passes
+    them): the kernel against its plain version bit for bit with the same
+    found pairs, in one launch; the kernel's time, and the plain version's
+    on the card, which is the PyTorch chain the kernel replaced (probe,
+    window and block gathers, permute copy, label mask). Bound: the four
+    planes written, the live rows' window rows and the found pairs'
+    blocks read once each (the pairs from the kernel's counter), over
+    3.35 TB/s. Returns its row of the kernel table."""
+    from sage_icp_tpu_torch.ops import correspondence_fast as cf
+    from sage_icp_tpu_torch.ops import cuda_lib
+
+    tables, rel, live, K, depth, grid_hits = cargs[:6]
+    dev = rel.device
+    pairs, plain_pairs = (torch.zeros((), dtype=torch.int32, device=dev) for _ in range(2))
+    cuda_lib.reset_launches()
+    got = cf.candidate_planes(tables, rel, live, K, depth, grid_hits, pairs)
+    torch.cuda.synchronize()
+    launches = cuda_lib.launches()["corr_planes"]
+    want = cf.candidate_planes_plain(tables, rel, live, K, depth, grid_hits, plain_pairs)
+    if launches != 1 or not all(torch.equal(a, b) for a, b in zip(got, want)) or int(pairs) != int(plain_pairs):
+        fail(f"corr_planes on the kitti drive's rows: {launches} launches, not bit-exact against its plain version "
+             f"or found pairs {int(pairs)} against {int(plain_pairs)}")
+    R, M = got[0].shape
+    n_live, found = int(live.sum()), int(pairs)
+    b_ms, b_by = bound(4 * R * M * 2 + n_live * 27 * depth * 4 + found * 4 * K * 2 + R * 13, 0)
+    row = dict(route="cuda", source="sage_icp_tpu_torch/csrc/corr_planes.cu",
+               replaces="none (corr_setup's gathers, sage_icp_tpu/ops/correspondence_fast.py:280-316)",
+               max_abs_err=max_abs_diff(got, want),
+               ms=time_ms(lambda: cf.candidate_planes(tables, rel, live, K, depth, grid_hits)),
+               plain_ms=time_ms(lambda: cf.candidate_planes_plain(tables, rel, live, K, depth, grid_hits)),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None, rows=R, live_rows=n_live, found_pairs=found,
+               store_bytes=cf.plane_store_bytes(K))
+    print(f"corr_planes on the kitti drive's rows: bit-exact, found pairs equal; R {R}, M {M}, live rows {n_live}, "
+          f"found pairs {found} of {27 * n_live}, {row['store_bytes']}-byte stores; kernel {row['ms']:.4f} ms, plain "
+          f"(the PyTorch chain) {row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return row
+
+
+def drive_rows(odom, buf, rargs, filter_args) -> dict:
     """Phase 7's drive rows: the policy kernel's arguments from one map
     insert of the scan in `buf` (as profile runs it, the state held
-    fixed) and the radius count's `rargs` from the frame's filter. Each
-    kernel against its plain version bit for bit, the rows' shape, the
-    kernel's time; the arguments go to DRIVE_ROWS for --root, with the
-    frame's filter input (filter_args: points and valid mask)."""
+    fixed), the radius count's `rargs` from the frame's filter and the
+    candidate planes' and corr_setup's from the frame's row build at its
+    guess. Each kernel against its plain version bit for bit, the rows'
+    shape, the kernel's time; the arguments go to DRIVE_ROWS for --root,
+    with the frame's filter input (filter_args: points and valid mask).
+    Returns the candidate planes' row of the kernel table (planes_row)."""
     from sage_icp_tpu_torch.models import pipeline as pl
+    from sage_icp_tpu_torch.ops import correspondence_fast as cf
     from sage_icp_tpu_torch.ops import geometry as geo
     from sage_icp_tpu_torch.ops import hashmap as hm
     from sage_icp_tpu_torch.ops import nn_kernels, policy_kernel
 
     cfg, dev, state = odom.config, odom.device, odom.state
     prep = pl.prepare_icp_inputs(state, buf, buf[:, 0] < 1.0e6, torch.zeros(len(buf), device=dev), cfg)
-    icp = pl.run_icp(state.map, prep, cfg)
+    (icp, (cargs, _)), (sargs, skw) = capture(cf, "corr_setup", lambda: capture(
+        cf, "candidate_planes", lambda: pl.run_icp(state.map, prep, cfg)))
+    planes = planes_row(cargs)
     world = geo.transform_points(icp.pose, prep["frame_ds"])
     _, (pargs, pkw) = capture(policy_kernel, "apply_policy", lambda: hm.insert(
         state.map, world, prep["frame_valid"], cfg.voxel_size_map, cfg.basic_points_per_voxel,
@@ -892,8 +979,12 @@ def drive_rows(odom, buf, rargs, filter_args) -> None:
           f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
     os.makedirs(os.path.dirname(DRIVE_ROWS), exist_ok=True)
     cpu = lambda args: [a.cpu() if torch.is_tensor(a) else a for a in args]
+    setup = dict(map=cpu(sargs[0][:4]), tables=cpu(sargs[1]), query=sargs[2].cpu(), valid=sargs[3].cpu(),
+                 voxel_size=float(sargs[4]), probe_depth=int(sargs[5]),
+                 fast={k: skw[k] for k in ("unique_voxel_rows", "queries_per_voxel", "overflow_rows")})
     torch.save({"apply_policy": cpu(pargs), "basic": basic, "radius_count": cpu(rargs),
-                "filter": cpu(filter_args)}, DRIVE_ROWS)
+                "filter": cpu(filter_args), "corr_setup": setup}, DRIVE_ROWS)
+    return planes
 
 
 def kitti_checks(odom, scan):
@@ -905,8 +996,8 @@ def kitti_checks(odom, scan):
     position as an iota key, padded to 2^18 with sentinel keys) against
     torch.sort(stable=True); the drive's own kernel rows (drive_rows) and
     the min-diffusion's (diffusion_row, on the frame's vehicle sort keys).
-    Returns the sort kernel's launches there and the min-diffusion's row
-    of the kernel table."""
+    Returns the sort kernel's launches there, and the min-diffusion's and
+    the candidate planes' rows of the kernel table."""
     from sage_icp_tpu_torch.ops import cuda_lib, nn_kernels
     from sage_icp_tpu_torch.ops import dynamic_filter as dyn
     from sage_icp_tpu_torch.ops import scan as scan_ops
@@ -949,8 +1040,8 @@ def kitti_checks(odom, scan):
           f"{time_ms(lambda: sort_kernel.bitonic_sort_planes((key, pos), 2)):.4f} ms in "
           f"{sort_kernel.bitonic_launches(n, 2)} launches, torch.sort "
           f"{time_ms(lambda: torch.sort(key, stable=True)):.4f} ms", flush=True)
-    drive_rows(odom, buf, rargs, (pts, ok))
-    return launches, diffusion_row(vk, nx)
+    planes = drive_rows(odom, buf, rargs, (pts, ok))
+    return launches, diffusion_row(vk, nx), planes
 
 
 def filter_counts(odom) -> None:
@@ -1118,8 +1209,10 @@ def run_cli(mode: str, extra: list) -> dict:
         if not all(np.isfinite(t) and t > 0 for t in t_icp):
             fail(f"CLI timed: t_icp not finite and positive on every line: {t_icp}")
     replays = CLI_FRAMES if mode == "timed" else 0  # IcpTimer replays prepare and the solve each frame
+    if replays:
+        del launches["reanchors"]  # the timer's solves re-anchor in no span
     expect_launches(f"CLI {mode}", launches, sum(res.iterations) + sum(res.replay_iterations), CLI_FRAMES,
-                    CLI_FRAMES + replays)
+                    CLI_FRAMES + replays, solves=CLI_FRAMES + len(res.replay_iterations))
     ms = 1e3 * res.mean_total_time
     print(f"CLI {mode} ({' '.join(argv)}): ATE {ate:.5f} m, {ms:.3f} ms/frame (runner's mean_frame_time_s), "
           f"wall {wall:.2f} s, ICP iterations {sum(res.iterations)} + {sum(res.replay_iterations)} in the "
@@ -2303,7 +2396,7 @@ def clock_drive(label: str, config, scans, block: int, fail_at: int | None = Non
     from sage_icp_tpu_torch.runtime import tracing as tr
 
     rec = tr.RECORDER
-    reads = []  # (frame id, seq, piece, row after it, live rows after finish)
+    reads = []  # (frame id, seq, piece, row after it, live rows after finish, found pairs after a row build)
 
     def piece(self, name):
         real_piece(self, name)
@@ -2311,7 +2404,8 @@ def clock_drive(label: str, config, scans, block: int, fail_at: int | None = Non
         torch.cuda.synchronize()
         row = frame.ring.rows[frame.seq % rec.capacity].cpu().numpy().copy()
         live = int(self._loop.loop_i[ik.I_LIVE_ROWS]) if name == "finish" else None
-        reads.append((frame.id, frame.seq, name, row, live))
+        found = int(self._loop.found_pairs) if name in ("prepare", "reanchor") else None
+        reads.append((frame.id, frame.seq, name, row, live, found))
 
     real_piece, real_block = pl.DeviceStep._piece, reg.BLOCK_ITERATIONS
     pl.DeviceStep._piece, reg.BLOCK_ITERATIONS = piece, block
@@ -2344,14 +2438,18 @@ def clock_drive(label: str, config, scans, block: int, fail_at: int | None = Non
     if int(ring.counter) != ring.begun:
         fail(f"phase 16, {label}: the card's frame counter {int(ring.counter)}, the frames begun {ring.begun}")
     filtered = config.dynamic_vehicle_filter
-    err, stamps, most, replay, last, cells = 0, 0, 0, {}, {}, 0
-    for fid, seq, name, row, live in reads:
+    err, stamps, most, replay, last, cells, pairs = 0, 0, 0, {}, {}, 0, 0
+    for fid, seq, name, row, live, found in reads:
         ops = piece_stamps(name, filtered)
         stamps += len(ops)
         before = last.get(fid)
         want = replay.setdefault(fid, np.zeros(tr.SLOTS, dtype=np.int64))
         for (op, slot), t in zip(ops, stamp_times(ops, before, row)):
-            tr.stamp_row(want, op, slot, t, seq, live)
+            if op == tr.CLOSE and found is not None:  # a row build's close: the found pairs so far
+                tr.stamp_row(want, op, slot, t, seq, found, tr.CORR_FOUND_PAIRS)
+            else:
+                tr.stamp_row(want, op, slot, t, seq, live)
+        pairs = max(pairs, found or 0)
         if name == "prepare" and filtered:  # the min-diffusion's counts, written between the stamps
             want[tr.VEHICLE_CELLS], want[tr.DIFFUSION_ROUNDS] = row[tr.VEHICLE_CELLS], row[tr.DIFFUSION_ROUNDS]
             cells = max(cells, int(row[tr.VEHICLE_CELLS]))
@@ -2365,12 +2463,13 @@ def clock_drive(label: str, config, scans, block: int, fail_at: int | None = Non
             if f is None or live != f.live_rows or f.live_rows != int(row[tr.LIVE_ROWS]):
                 fail(f"phase 16, {label}: frame {fid}'s live rows {None if f is None else f.live_rows}, the loop's "
                      f"count {live}")
-            got = (f.stages_ns, f.first_ns, f.last_ns, f.pieces_run, f.pieces, f.vehicle_cells, f.diffusion_rounds)
+            got = (f.stages_ns, f.first_ns, f.last_ns, f.pieces_run, f.pieces, f.vehicle_cells, f.diffusion_rounds,
+                   f.corr_found_pairs)
             n = int(want[tr.PIECES])
             exp = ({k: int(want[v]) for k, v in tr.STAGES.items()}, int(want[tr.FIRST]), int(want[tr.LAST]), n,
                    [(int(want[tr.PIECE0 + 2 * i]), int(want[tr.PIECE0 + 2 * i + 1]))
                     for i in range(min(n, tr.MAX_PIECES))], int(want[tr.VEHICLE_CELLS]),
-                   int(want[tr.DIFFUSION_ROUNDS]))
+                   int(want[tr.DIFFUSION_ROUNDS]), int(want[tr.CORR_FOUND_PAIRS]))
             if got != exp:
                 fail(f"phase 16, {label}: frame {fid}'s record {got} differs from its replay {exp}")
             if n <= tr.MAX_PIECES and f.device_ns != sum(b - a for a, b in f.pieces):
@@ -2381,6 +2480,8 @@ def clock_drive(label: str, config, scans, block: int, fail_at: int | None = Non
         fail(f"phase 16, {label}: {stamps_launched} stage_clock launches, the pieces make {stamps}")
     if filtered and cells == 0:
         fail(f"phase 16, {label}: no frame's row counted an occupied vehicle cell")
+    if pairs == 0:
+        fail(f"phase 16, {label}: no row build found a neighbour in the map")
     pieces = [f.pieces_run for f in frames.values()]
     print(f"phase 16, {label}: {len(frames)} captured frames at blocks of {block}, pieces a frame {pieces}, "
           f"{stamps} stamps; every row read back equal to its replay, records and live rows equal"
@@ -2492,8 +2593,9 @@ def main() -> int:
     kitti_scans, launches, kitti_gt, kitti_rng = drive("kitti", kitti, 1.3, WARMUP, FRAMES, extra)
     kitti_traj, kitti_map = kitti.trajectory(), kitti.state.map
     filter_counts(kitti)
-    sort_launches, rows["min_diffusion"] = kitti_checks(kitti, kitti_scans[n - 1])
+    sort_launches, rows["min_diffusion"], rows["corr_planes"] = kitti_checks(kitti, kitti_scans[n - 1])
     print_row("min_diffusion", rows["min_diffusion"])
+    print_row("corr_planes", rows["corr_planes"])
     rows["stage_clock"] = stage_clock_phase(kitti_scans, dev)
     print_row("stage_clock", rows["stage_clock"])
     deskew_odom, skewed, tss, deskew_kernel_ms = runtime_phase(kitti_scans, dev)

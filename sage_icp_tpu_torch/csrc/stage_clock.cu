@@ -23,6 +23,9 @@
 //   29 deskew            the deskew stage's summed device time, ns
 //   30 deskewed_points   the scan's rows deskew moved, written by the stamp
 //                        that ends the deskew stage; 0 without deskew
+//   31 corr_found_pairs  the found (row, neighbour) pairs of the frame's row
+//                        builds so far, written by the stamps that close the
+//                        prepare and reanchor pieces; 0 on the reference path
 //
 // Ops: BEGIN opens the frame and its first piece (the row zeroed); START
 // opens a piece; SPLIT ends a stage (slot) and starts the next inside a
@@ -43,7 +46,7 @@ namespace {
 
 constexpr int kSeq = 0, kFirst = 1, kLast = 2, kMark = 3, kRuns = 10, kRun0 = 11;
 constexpr int kMaxRuns = 8;
-constexpr int kSlots = kRun0 + 2 * kMaxRuns + 4;
+constexpr int kSlots = kRun0 + 2 * kMaxRuns + 5;
 constexpr int kBegin = 0, kStart = 1, kSplit = 2, kClose = 3, kEndFrame = 4;
 
 __device__ __forceinline__ long long global_ns() {
@@ -85,7 +88,7 @@ __global__ void stage_clock_kernel(long long* __restrict__ ring, long long* __re
 
 }  // namespace
 
-// ring: (capacity, 31) int64 rows; frame: one int64, the frame counter;
+// ring: (capacity, 32) int64 rows; frame: one int64, the frame counter;
 // slot: the stage of SPLIT / CLOSE / END_FRAME; value: one int32 or null,
 // copied into the slot `into`. All device pointers. One launch of one
 // thread.

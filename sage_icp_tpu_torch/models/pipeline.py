@@ -675,8 +675,9 @@ class DeviceStep:
     each piece stamps the device's stage clock (captured with it): prepare
     opens the frame and stamps the deskew (with its count of deskewed
     points), head, filter and downsample stages, its rest and every block
-    and reanchor piece go to the icp stage, finish to the update stage
-    and, last, the frame's GN live-row count."""
+    and reanchor piece go to the icp stage (prepare's and each reanchor's
+    close stamp with the frame's found pairs so far), finish to the update
+    stage and, last, the frame's GN live-row count."""
 
     def __init__(self, config: SageConfig, device=None, graph: bool = True, packed: bool = True, mesh=None,
                  shard_insert: bool = True, donate: bool = True):
@@ -747,7 +748,15 @@ class DeviceStep:
             self._loop = reg.IcpLoop(*args, cfg.max_icp_iterations, cfg.probe_depth, self.fast_params,
                                      prep["tables"], self.mesh)
         self._loop.block()
-        clock.close(tracing.ICP)
+        self._close_icp()
+
+    def _close_icp(self) -> None:
+        """The stamp that closes an icp piece; the frozen-rows loop's
+        copies its found pairs so far into the row's corr_found_pairs."""
+        if self.fast_params is None:
+            self.clock.close(tracing.ICP)
+        else:
+            self.clock.close(tracing.ICP, self._loop.found_pairs, tracing.CORR_FOUND_PAIRS)
 
     def _block(self) -> None:
         self.clock.start()
@@ -758,7 +767,7 @@ class DeviceStep:
         self.clock.start()
         self._loop.reanchor()
         self._loop.block()
-        self.clock.close(tracing.ICP)
+        self._close_icp()
 
     def _finish(self) -> None:
         self.clock.start()

@@ -12,16 +12,20 @@ as in the JAX reference package.
     blocks once into int16 candidate planes (corr_setup). A GN iteration
     then only re-applies the pose increment to the queries and runs the
     selection kernel over the frozen rows (nn_kernels).
+  * The planes' probe and gather (candidate_planes) are one launch of
+    csrc/corr_planes.cu on the card, and plain PyTorch on the CPU
+    (candidate_planes_plain).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
+from sage_icp_tpu_torch.ops import cuda_lib, nn_kernels
 from sage_icp_tpu_torch.ops import hashmap as hm
-from sage_icp_tpu_torch.ops import nn_kernels
 from sage_icp_tpu_torch.ops.scan import trunc_div
 
 PACK_BITS = 10  # 10-bit per-axis offsets: rel coords must fit +-255
@@ -71,6 +75,79 @@ def probe(tables: ProbeTables, abs_keys: torch.Tensor, rel_codes: torch.Tensor, 
     return match.any(dim=-1), slot
 
 
+_CP_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+
+
+def plane_store_bytes(K: int) -> int:
+    """The kernel's store width: the widest of 16, 8, 4 and 2 bytes that
+    divides a neighbour's 2K-byte segment."""
+    return next(w for w in (16, 8, 4, 2) if (2 * K) % w == 0)
+
+
+def candidate_planes(tables: ProbeTables, row_rel, row_live, K: int, probe_depth: int, grid_hits=None,
+                     found_pairs=None):
+    """The rows' candidate planes (cx, cy, cz, cl), each (R', 27K) int16:
+    lanes [nK, nK + K) of a row hold the block of its neighbour n (row_rel
+    (R', 3) int32 + NEIGHBOR_OFFSETS[n]), slot 0's where the neighbour is
+    not found, and cl -1 there. A dead row (row_live (R',) bool false) or
+    an out-of-range neighbour finds nothing. The neighbours' slots come
+    from the probe tables, or from grid_hits ((found, slot), each (R', 27),
+    found false in dead rows: the dense index). found_pairs (a 0-dim int32
+    tensor): the found (row, neighbour) pairs are added to it. On a CUDA
+    tensor one launch of csrc/corr_planes.cu, the planes the rows of one
+    (4, R', 27K) tensor; on the CPU candidate_planes_plain."""
+    if cuda_lib.on_cpu(row_rel):
+        return candidate_planes_plain(tables, row_rel, row_live, K, probe_depth, grid_hits, found_pairs)
+    Rl = row_rel.shape[0]
+    cap = tables.window.shape[0]
+    dev = row_rel.device
+    cuda_lib.check_cuda("row_rel", row_rel, torch.int32, (Rl, 3))
+    cuda_lib.check_cuda("row_live", row_live, torch.bool, (Rl,))
+    cuda_lib.check_cuda("center", tables.center, torch.int32, (3,))
+    cuda_lib.check_cuda("window", tables.window, torch.int32, (cap, probe_depth))
+    cuda_lib.check_cuda("points2", tables.points2, torch.int16, (cap, 4 * K))
+    if cap & (cap - 1):
+        raise ValueError(f"candidate_planes: the map's capacity {cap} is not a power of two")
+    width = plane_store_bytes(K)
+    if tables.points2.data_ptr() % width:
+        raise ValueError(f"points2: the kernel copies {2 * K}-byte segments {width} B at a time; the base address "
+                         f"must be {width}-byte aligned")
+    found, slot = (None, None) if grid_hits is None else grid_hits
+    if grid_hits is not None:
+        cuda_lib.check_cuda("grid found", found, torch.bool, (Rl, 27))
+        cuda_lib.check_cuda("grid slot", slot, torch.int32, (Rl, 27))
+    if found_pairs is not None:
+        cuda_lib.check_cuda("found_pairs", found_pairs, torch.int32, ())
+    planes = torch.empty((4, Rl, 27 * K), dtype=torch.int16, device=dev)
+    fn = cuda_lib.function("corr_planes.cu", "sage_corr_planes", _CP_ARGTYPES)
+    p = cuda_lib.ptr
+    opt = lambda t: None if t is None else p(t)
+    cuda_lib.call("corr_planes", fn, dev, p(row_rel), p(row_live), p(tables.center), p(tables.window),
+                  p(tables.points2), opt(found), opt(slot), Rl, cap.bit_length() - 1, probe_depth, K, width,
+                  p(planes), opt(found_pairs))
+    return tuple(planes)
+
+
+def candidate_planes_plain(tables: ProbeTables, row_rel, row_live, K: int, probe_depth: int, grid_hits=None,
+                           found_pairs=None):
+    """candidate_planes by the probe, one row gather of the blocks, a
+    permute into planes and the label plane masked."""
+    Rl = row_rel.shape[0]
+    if grid_hits is None:
+        nb_rel = row_rel[:, None, :] + hm.neighbor_offsets(row_rel.device)[None]  # (R', 27, 3)
+        nb_code = torch.where(row_live[:, None], pack_rel(nb_rel), -1)
+        found, slot = probe(tables, nb_rel + tables.center, nb_code, probe_depth)
+    else:
+        found, slot = grid_hits
+    if found_pairs is not None:
+        found_pairs.add_(found.sum(dtype=torch.int32))
+    raw = tables.points2[torch.where(found, slot, 0).reshape(-1).long()]  # (R'*27, 4K)
+    M = 27 * K
+    planes = raw.reshape(Rl, 27, 4, K).permute(2, 0, 1, 3).reshape(4, Rl, M)
+    cm = found[..., None].expand(Rl, 27, K).reshape(Rl, M)
+    return planes[0], planes[1], planes[2], torch.where(cm, planes[3], -1).to(torch.int16)
+
+
 class CorrSetup(NamedTuple):
     """Queries grouped into voxel rows with their 27-neighbourhood
     candidates gathered once per anchor pose. A query that drifts during
@@ -96,11 +173,14 @@ class CorrSetup(NamedTuple):
 
 def corr_setup(state: hm.MapState, tables: ProbeTables, query, valid, voxel_size, probe_depth: int,
                unique_voxel_rows: int = 4096, queries_per_voxel: int = 8,
-               overflow_rows: int = 1024, rows: tuple[int, int] | None = None) -> CorrSetup:
+               overflow_rows: int = 1024, rows: tuple[int, int] | None = None,
+               found_pairs: torch.Tensor | None = None) -> CorrSetup:
     """Group (N, 4) world-frame queries by voxel and gather their
-    candidate planes. The neighbours' slots come from the map's dense
-    index when it has one, else from the probe tables; the planes come
-    from tables.points2 either way. Never synchronises the host.
+    candidate planes (candidate_planes). The neighbours' slots come from
+    the map's dense index when it has one, else from the probe tables; the
+    planes come from tables.points2 either way. Never synchronises the
+    host. found_pairs (a 0-dim int32 tensor): the rows' found (row,
+    neighbour) pairs are added to it.
 
     rows (lo, hi): one rank's share of the R rows (parallel/sharding.py).
     The query sort, the seats (order, row, col, n_dropped) and row_rel
@@ -147,7 +227,6 @@ def corr_setup(state: hm.MapState, tables: ProbeTables, query, valid, voxel_size
 
     # the rows [lo, hi) from here on
     lo, hi = (0, R) if rows is None else rows
-    Rl = hi - lo
     start, row_live, rel_l = start[lo:hi], row_live_all[lo:hi], row_rel[lo:hi]
     start_c = torch.clamp(start, max=n - 1).long()
     row_origin_abs = (rel_l + center[None, :]).to(query.dtype) * voxel_size
@@ -167,24 +246,16 @@ def corr_setup(state: hm.MapState, tables: ProbeTables, query, valid, voxel_size
         ~oob & row_live[:, None],
     )
 
-    nb_rel = rel_l[:, None, :] + hm.neighbor_offsets(dev)[None]  # (R', 27, 3)
+    grid_hits = None
     if state.grid is not None:
         # the dense index: one 8-byte row per neighbour in place of a
         # probe_depth-deep window row
-        found, slot = hm.grid_probe(state, nb_rel + center)
-        found = found & row_live[:, None]
-    else:
-        nb_code = torch.where(row_live[:, None], pack_rel(nb_rel), -1)
-        found, slot = probe(tables, nb_rel + center, nb_code, probe_depth)
-
-    raw = tables.points2[torch.where(found, slot, 0).reshape(-1).long()]  # (R'*27, 4K)
-    M = 27 * K
-    planes = raw.reshape(Rl, 27, 4, K).permute(2, 0, 1, 3).reshape(4, Rl, M)
-    cm = found[..., None].expand(Rl, 27, K).reshape(Rl, M)
+        found, slot = hm.grid_probe(state, rel_l[:, None, :] + hm.neighbor_offsets(dev)[None] + center)
+        grid_hits = (found & row_live[:, None], slot)
+    cxp, cyp, czp, clp = candidate_planes(tables, rel_l, row_live, K, probe_depth, grid_hits, found_pairs)
     n_dropped = valid.sum(dtype=torch.int32) - (val_s & (row < R)).sum(dtype=torch.int32)
     return CorrSetup(
-        cxp=planes[0], cyp=planes[1], czp=planes[2],
-        clp=torch.where(cm, planes[3], -1).to(torch.int16),
+        cxp=cxp, cyp=cyp, czp=czp, clp=clp,
         q0=g[..., :4], grid_used=grid_used, row_rel=row_rel, row_origin_abs=row_origin_abs,
         center=center, order=order, row=row, col=col, n_dropped=n_dropped,
     )

@@ -33,7 +33,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("semantic_nn.cu", "gn_iteration.cu", "retention_policy.cu", "radius_count.cu", "bitonic_sort.cu",
-           "icp_step.cu", "stage_clock.cu", "min_diffusion.cu")
+           "icp_step.cu", "stage_clock.cu", "min_diffusion.cu", "corr_planes.cu")
 
 # --fmad=false: no contraction of a*b+c into an FMA, so distances round
 # exactly as in the plain PyTorch versions (a near-tie would otherwise
@@ -45,7 +45,7 @@ NVCC_FLAGS = (
 )
 
 KERNELS = ("fused_semantic_nn", "fused_gn_iteration", "apply_policy", "radius_count", "bitonic_sort_planes",
-           "icp_step", "icp_ref_step", "stage_clock", "min_diffusion")
+           "icp_step", "icp_ref_step", "stage_clock", "min_diffusion", "corr_planes")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], object] = {}

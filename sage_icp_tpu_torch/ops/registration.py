@@ -22,7 +22,9 @@ When the status asks for a re-anchor, the rows are rebuilt between two
 blocks, at T_icp @ anchor, on the device. Each row build counts its live
 rows (a used query slot) on the device, and each running step adds that
 count to the frame's live rows, the GN rows the loop ran
-(frozen_rows' live_rows; runtime/tracing.py reads it). IcpLoop exposes the pieces
+(frozen_rows' live_rows; runtime/tracing.py reads it). Each row build also
+adds its found (row, neighbour) pairs to the loop's found_pairs
+(correspondence_fast.candidate_planes). IcpLoop exposes the pieces
 (its constructor, block, reanchor, result; status between them) that a
 captured step (models/pipeline.py::DeviceStep) records as CUDA graphs.
 
@@ -163,7 +165,9 @@ class IcpLoop:
 
     The state (loop_f, loop_i) and the rows keep their storage from the
     constructor on: reanchor writes the new rows into it, so a CUDA graph
-    captured over block() replays against whatever rows are current."""
+    captured over block() replays against whatever rows are current.
+    found_pairs (0-dim int32) sums the found (row, neighbour) pairs of
+    every row build of the loop."""
 
     def __init__(self, map_state: hm.MapState, frame, valid, initial_guess, voxel_size,
                  max_correspondence_distance, kernel, sem_th, max_iterations: int, probe_depth: int,
@@ -193,15 +197,18 @@ class IcpLoop:
         self.loop_i = torch.zeros((ik.LOOP_I,), dtype=torch.int32, device=dev)
         if self.max_iterations <= 0:
             self.loop_i[ik.I_STATUS].fill_(ik.DONE)
+        self.found_pairs = torch.zeros((), dtype=torch.int32, device=dev)
         n_rows = fast_params["unique_voxel_rows"] + fast_params["overflow_rows"]
         self.row_span = None if mesh is None else mesh.row_range(n_rows)
         self.rows = self._rows_at(guess)
 
     def _rows_at(self, pose) -> FrozenRows:
         """This rank's frozen rows with the queries at `pose`; their live
-        rows counted into the loop's state (icp_kernel.I_ROWS)."""
+        rows counted into the loop's state (icp_kernel.I_ROWS), their found
+        pairs added to found_pairs."""
         setup = cf.corr_setup(self.map_state, self.tables, geo.transform_points(pose, self.frame), self.valid,
-                              self.voxel_size, self.probe_depth, **self.fast_params, rows=self.row_span)
+                              self.voxel_size, self.probe_depth, **self.fast_params, rows=self.row_span,
+                              found_pairs=self.found_pairs)
         return frozen_rows(setup, self.row_span, self.loop_i[ik.I_ROWS])
 
     def _sums(self) -> torch.Tensor:

@@ -61,9 +61,14 @@ the frame's occupied vehicle cells and the rounds that changed a cluster
 id (at most 24: 24 says the round cut may bind); both 0 with the filter
 off. With config.deskew the stamp that ends the deskew stage writes the
 frame's deskewed points into the row: the scan's valid rows from the
-third pose on, 0 before (pipeline.scan_head); 0 without deskew. A stamp
-writes a count given to it (`value`) into its slot (`into`) as it stamps,
-so no count is read back while frames are stepped.
+third pose on, 0 before (pipeline.scan_head); 0 without deskew. The
+stamp that closes prepare and each reanchor piece writes the frame's
+found pairs so far: the (row, neighbour) pairs whose neighbour voxel
+the row builds found in the map (correspondence_fast.candidate_planes,
+on the card csrc/corr_planes.cu, counts them on the device); 0 on the
+reference path. A stamp writes a count given to it (`value`) into its
+slot (`into`) as it stamps, so no count is read back while frames are
+stepped.
 
 Staging counts. SageICP.pad_chunk counts, on the host, the scan rows
 it stages and the staging buffers it makes (register_chunk's device
@@ -105,7 +110,8 @@ VEHICLE_CELLS = PIECE0 + 2 * MAX_PIECES
 DIFFUSION_ROUNDS = VEHICLE_CELLS + 1
 DESKEW = DIFFUSION_ROUNDS + 1
 DESKEWED_POINTS = DESKEW + 1
-SLOTS = DESKEWED_POINTS + 1
+CORR_FOUND_PAIRS = DESKEWED_POINTS + 1
+SLOTS = CORR_FOUND_PAIRS + 1
 STAGES = {"head": HEAD, "filter": FILTER, "downsample": DOWNSAMPLE, "icp": ICP, "update": UPDATE, "deskew": DESKEW}
 BEGIN, START, SPLIT, CLOSE, END_FRAME = range(5)
 
@@ -166,6 +172,7 @@ class FrameRecord:
     vehicle_cells: int | None  # the filter's occupied vehicle cells (0 with the filter off)
     diffusion_rounds: int | None  # its min-diffusion's rounds that changed an id
     deskewed_points: int | None  # the scan's rows deskew moved (0 without deskew, and before the third pose)
+    corr_found_pairs: int | None  # found (row, neighbour) pairs of the frame's row builds (0 on the reference path)
     spans: list  # the frame's host spans
     staged_rows: int = 0  # scan rows SageICP.pad_chunk staged (a chunk's on its first frame)
     staging_buffers: int = 0  # staging buffers made for it (0 once the process is warm)
@@ -428,6 +435,7 @@ class Recorder:
                 vehicle_cells=int(row[VEHICLE_CELLS]) if n else None,
                 diffusion_rounds=int(row[DIFFUSION_ROUNDS]) if n else None,
                 deskewed_points=int(row[DESKEWED_POINTS]) if n else None,
+                corr_found_pairs=int(row[CORR_FOUND_PAIRS]) if n else None,
                 spans=[s for s in by_frame.get(f.id, []) if s.drive == f.drive],
                 staged_rows=staged[1], staging_buffers=staged[2]))
         return Snapshot(records, spans)
@@ -438,8 +446,9 @@ class StageClock:
     frame's row and its first piece, start opens a piece, split ends a
     stage inside a piece, close ends a stage and the piece, end_frame
     closes the frame's last piece and copies its GN live-row count
-    (`value`, a 0-dim int32 tensor). split also copies a count into the
-    slot `into` when it is given one (the deskewed points). Nothing is
+    (`value`, a 0-dim int32 tensor). split and close also copy a count
+    into the slot `into` when they are given one (the deskewed points, the
+    found pairs). Nothing is
     read back. A stamp belongs to the frame this thread steps
     (Recorder.begin_frame); outside one it raises."""
 
@@ -456,8 +465,8 @@ class StageClock:
     def split(self, slot: int, value: torch.Tensor | None = None, into: int = LIVE_ROWS) -> None:
         self._stamp(SPLIT, slot, value, into)
 
-    def close(self, slot: int) -> None:
-        self._stamp(CLOSE, slot)
+    def close(self, slot: int, value: torch.Tensor | None = None, into: int = LIVE_ROWS) -> None:
+        self._stamp(CLOSE, slot, value, into)
 
     def end_frame(self, slot: int, value: torch.Tensor | None = None) -> None:
         self._stamp(END_FRAME, slot, value)

@@ -18,7 +18,8 @@ inputs read from device memory, a no-op on a stopped status; the ICP step
 kernel bit for bit; the captured step equal to the eager one bit for bit;
 the
 filter's keep mask and overflow bit for bit; the min-diffusion kernel
-bit for bit, with its two recorder counts equal to a numpy replay's; the GN sums within 1e-5 of
+bit for bit, with its two recorder counts equal to a numpy replay's; the
+candidate planes' kernel bit for bit, with its found pairs equal; the GN sums within 1e-5 of
 the sum of their terms' magnitudes (only the summation order differs);
 poses within 1e-4 of the CPU run; the golden trajectory within
 0.02 m / 0.02; the maneuver ATE below 0.30 m and re-lock after a garbage
@@ -979,6 +980,151 @@ def test_min_diffusion_kernel_matches_plain(card, case):
         assert cells > 1 and rounds > 0
 
 
+@pytest.fixture(scope="module")
+def drive_planes():
+    """candidate_planes' arguments at a kitti frame's rows: SageICP() over
+    three scans of the kitti-scale drive, then the fourth scan's row build
+    at the guess (the call corr_setup makes in run_icp, kept by a spy),
+    its counter left out."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    world = kitti_world()
+    gt = synthetic.make_trajectory(4, step=1.0)
+    rng = np.random.default_rng(0)
+    scans = [synthetic.render_scan(*world, gt[i], rng, n_target=120_000) for i in range(4)]
+    odom = tpl.SageICP()
+    for s in scans[:3]:
+        odom.register_frame(s)
+    cfg, dev = odom.config, odom.device
+    pts, valid, ts = tpl._split_packed(torch.from_numpy(odom.pad_chunk([scans[3]])[0]).to(dev))
+    prep = tpl.prepare_icp_inputs(odom.state, pts, valid, ts, cfg)
+    seen, real = [], tcf.candidate_planes
+    tcf.candidate_planes = lambda *a: seen.append(a) or real(*a)
+    try:
+        tpl.run_icp(odom.state.map, prep, cfg)
+    finally:
+        tcf.candidate_planes = real
+    return seen[0][:5], cfg.corr_unique_voxel_rows
+
+
+def crowded_map(K, cap=512, depth=12, seed=0):
+    """A cap-slot map filled by probing, as the insert places voxels: the
+    keys of a 16 x 16 x 2 voxel patch round `center`, each at the first
+    free slot of its probe sequence (dropped when all `depth` are taken),
+    random blocks. Returns (the map, center, the keys' rel voxels, each
+    key's depth; -1 where dropped)."""
+    rng = np.random.default_rng(seed)
+    center = np.array([100, -50, 7], dtype=np.int32)
+    ii, jj, kk = np.meshgrid(np.arange(-8, 8), np.arange(-8, 8), np.arange(-1, 1), indexing="ij")
+    rel = np.stack([ii.ravel(), jj.ravel(), kk.ravel()], 1).astype(np.int32)
+    rel = rel[rng.permutation(len(rel))]
+    state = thm.create(cap, K)
+    state.points.copy_(torch.from_numpy(rng.integers(-32767, 32768, (cap, 4, K)).astype(np.int16)))
+    h = thm.hash_keys(torch.from_numpy(rel + center), cap).numpy()
+    taken, depths = np.zeros(cap, bool), []
+    for key, hk in zip(rel + center, h):
+        free = [d for d in range(depth) if not taken[(hk + d * (d + 1) // 2) % cap]]
+        depths.append(free[0] if free else -1)
+        if free:
+            slot = (hk + free[0] * (free[0] + 1) // 2) % cap
+            taken[slot] = True
+            state.keys[slot] = torch.from_numpy(key)
+            state.counts[slot] = K
+    return state, center, rel, np.array(depths), h
+
+
+def planes_case(case, K, drive):
+    """(candidate_planes' arguments on the card, grid_hits or None) of a
+    case of test_corr_planes_kernel_matches_plain."""
+    if case in ("kitti_drive", "overflow_rows", "three_ranks"):
+        (tables, rel, live, k, depth), Q = drive
+        assert k == K
+        if case == "overflow_rows":
+            rel, live = rel[Q:], live[Q:]
+        return (tables, rel, live, K, depth), None
+    depth = 12
+    rng = np.random.default_rng(K)
+    state, center, keys_rel, depths, h = crowded_map(K, depth=depth)
+    if case == "last_depth_wrap":
+        slots = (h + np.maximum(depths, 0) * (np.maximum(depths, 0) + 1) // 2) % 512
+        assert (depths == depth - 1).any() and ((depths >= 0) & (slots < h)).any()
+    if case == "empty_map":
+        state = thm.create(512, K)
+    rows = np.concatenate([keys_rel + rng.integers(-1, 2, keys_rel.shape), rng.integers(-12, 12, (300, 3)),
+                           [[255, 0, 0], [-255, 3, 1], [0, 254, -255]]]).astype(np.int32)
+    live = rng.random(len(rows)) < 0.85
+    if case == "dead_rows":
+        live[:] = False
+    rows[~live] = 0
+    dev = torch.device("cuda")
+    tables = tcf.build_probe_tables(thm.MapState(*(x.to(dev) for x in state[:4])), torch.from_numpy(center).to(dev),
+                                    depth)
+    rel_t, live_t = torch.from_numpy(rows).to(dev), torch.from_numpy(live).to(dev)
+    grid_hits = None
+    if case == "dense_grid":
+        found = torch.from_numpy(rng.random((len(rows), 27)) < 0.5).to(dev) & live_t[:, None]
+        grid_hits = (found, torch.from_numpy(rng.integers(0, 512, (len(rows), 27)).astype(np.int32)).to(dev))
+    return (tables, rel_t, live_t, K, depth), grid_hits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,K", [("kitti_drive", 40), ("overflow_rows", 40), ("three_ranks", 40),
+                                    ("empty_map", 20), ("empty_map", 40), ("dead_rows", 20), ("dead_rows", 40),
+                                    ("last_depth_wrap", 20), ("last_depth_wrap", 40), ("last_depth_wrap", 10),
+                                    ("last_depth_wrap", 7), ("dense_grid", 20), ("dense_grid", 40)])
+def test_corr_planes_kernel_matches_plain(card, drive_planes, case, K):
+    """The candidate planes' kernel (csrc/corr_planes.cu) against
+    candidate_planes_plain on the card, all four planes bit for bit (slot
+    0's block in lanes not found, -1 in their labels), in one launch, with
+    the same found pairs: the kitti drive's rows, its overflow rows and a
+    three-rank split of them (each share as corr_setup's `rows` takes it,
+    the shares together the whole); a probed map with matches at the last
+    probe depth and windows that wrap at the capacity, an empty map, rows
+    all dead, and the dense grid's given hits, at K = 7, 10, 20 and 40
+    (store widths 2, 4, 8 and 16 B)."""
+    args, grid_hits = planes_case(case, K, drive_planes)
+    pieces = [(0, args[1].shape[0])]
+    if case == "three_ranks":
+        R = args[1].shape[0]
+        pieces = [(r * R // 3, (r + 1) * R // 3) for r in range(3)]
+    whole = tcf.candidate_planes_plain(*args, grid_hits)
+    for lo, hi in pieces:
+        share = (args[0], args[1][lo:hi], args[2][lo:hi], *args[3:])
+        hits = None if grid_hits is None else tuple(x[lo:hi] for x in grid_hits)
+        got_pairs, want_pairs = (torch.zeros((), dtype=torch.int32, device=card) for _ in range(2))
+        cuda_lib.reset_launches()
+        got = tcf.candidate_planes(*share, hits, got_pairs)
+        assert cuda_lib.launches()["corr_planes"] == 1
+        want = tcf.candidate_planes_plain(*share, hits, want_pairs)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert all(torch.equal(a, b[lo:hi]) for a, b in zip(got, whole))
+        assert int(got_pairs) == int(want_pairs)
+    found = int((whole[3] >= 0).sum())
+    if case in ("empty_map", "dead_rows"):
+        assert int(want_pairs) == 0 and found == 0
+    else:
+        assert int(want_pairs) > 0
+    if case == "kitti_drive":
+        names = device_kernels(lambda: tcf.candidate_planes(*args))
+        assert len(names) == 1 and "corr_planes_kernel" in names[0], names
+
+
+@pytest.mark.cuda
+def test_corr_planes_kernel_refuses_misaligned_or_mistyped_inputs(card, drive_planes):
+    (tables, rel, live, K, depth), _ = drive_planes
+    p2 = tables.points2
+    shifted = torch.empty(p2.numel() + 1, dtype=torch.int16, device=card)[1:].view(p2.shape)
+    shifted.copy_(p2)
+    with pytest.raises(ValueError, match="aligned"):
+        tcf.candidate_planes(tables._replace(points2=shifted), rel, live, K, depth)
+    with pytest.raises(ValueError, match="int32"):
+        tcf.candidate_planes(tables, rel.long(), live, K, depth)
+    with pytest.raises(ValueError, match="bool"):
+        tcf.candidate_planes(tables, rel, live.to(torch.uint8), K, depth)
+    with pytest.raises(ValueError, match="shape"):
+        tcf.candidate_planes(tables, rel, live, K, depth + 1)
+
+
 @pytest.mark.cuda
 def test_staged_uploads_step_the_same_poses_on_card(card):
     """SageICP stages its scans in pinned buffers and uploads them without
@@ -1033,10 +1179,10 @@ def test_kitti_default_preset_on_card(card):
     assert max(err) < 0.05
 
 
-# The kitti preset's prepare graph (deskew off): its nodes before the scan
-# head's clock split into a deskew and a head stage, which adds nothing
-# without deskew (torch 2.11.0+cu128 on an H100; the deskew on, 1,310).
-KITTI_PREPARE_NODES = 986
+# The kitti preset's prepare graph (deskew off): its nodes since the row
+# build's probe, gathers, permute and mask became one launch of
+# csrc/corr_planes.cu, 986 before (torch 2.11.0+cu128 on an H100).
+KITTI_PREPARE_NODES = 920
 
 
 def graph_nodes(graph) -> int:

@@ -1,8 +1,8 @@
 """The recorder (sage_icp_tpu_torch/runtime/tracing.py): host spans and
 their nesting, the frames' records through SageICP, the stage clock's
 rows on the CPU, the profiler's view of the spans, the rings' bounds,
-the GN live-row counter and the deskew stage with its count; on the
-card, the captured step's stamps. This file imports no JAX, so the
+the GN live-row and found-pair counters and the deskew stage with its
+count; on the card, the captured step's stamps. This file imports no JAX, so the
 card's test runs where only PyTorch is:
 
     python -m pytest tests/test_torch_tracing.py -m cuda -q --noconftest
@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from sage_icp_tpu_torch.models import pipeline as tpl
+from sage_icp_tpu_torch.ops import correspondence_fast as tcf
 from sage_icp_tpu_torch.ops import cuda_lib
 from sage_icp_tpu_torch.ops import dynamic_filter as tdyn
 from sage_icp_tpu_torch.ops import geometry as tgeo
@@ -103,6 +104,7 @@ def test_one_record_a_frame_and_w_a_chunk(drive):
     assert top == ["reinitialize", "frame", "frame", "chunk", "trajectory"]
     for f, iters in zip(frames, odom.iteration_counts()):
         assert f.live_rows is not None and f.live_rows >= iters > 0
+    assert frames[0].corr_found_pairs == 0 and all(f.corr_found_pairs > 0 for f in frames[1:])
 
 
 def test_every_stage_slot_is_present_and_in_order(drive):
@@ -285,7 +287,8 @@ def test_a_step_that_raises_leaves_the_next_frame_its_own_row(monkeypatch):
 
 def test_counted_live_rows_equal_a_plain_count():
     """The loop's counter against the rows of each build times the
-    iterations run on them, through a re-anchor (tests/test_torch_cuda.py's
+    iterations run on them, and its found pairs against each build's
+    rows probed anew, through a re-anchor (tests/test_torch_cuda.py's
     two walls and a floor seen from an offset, the guess at identity:
     tests/test_torch_device_step.py's "reanchor" case)."""
     rng = np.random.default_rng(0)
@@ -305,7 +308,13 @@ def test_counted_live_rows_equal_a_plain_count():
     def live():
         return int((loop.rows.used != 0).any(dim=1).sum())
 
-    rows, done, want, builds = live(), 0, 0, 1
+    def found():
+        center = loop.tables.center
+        nb = (loop.rows.row_abs - center)[:, None, :] + thm.neighbor_offsets()[None]
+        codes = torch.where((loop.rows.used != 0).any(dim=1)[:, None], tcf.pack_rel(nb), -1)
+        return int(tcf.probe(loop.tables, nb + center, codes, 8)[0].sum())
+
+    rows, done, want, builds, pairs = live(), 0, 0, 1, found()
     loop.block()
     while True:
         it = int(loop.loop_i[ik.I_ITERATIONS])
@@ -315,9 +324,10 @@ def test_counted_live_rows_equal_a_plain_count():
             break
         if s == ik.REANCHOR:
             loop.reanchor()
-            rows, builds = live(), builds + 1
+            rows, builds, pairs = live(), builds + 1, pairs + found()
         loop.block()
     assert builds > 1 and 0 < rows < loop.rows.used.shape[0]
+    assert int(loop.found_pairs) == pairs > 0
     assert int(loop.loop_i[ik.I_LIVE_ROWS]) == want
     assert int(loop.loop_i[ik.I_ROWS]) == rows
 
