@@ -845,7 +845,7 @@ def single_pass(odom, scan):
         cfg.corr_unique_voxel_rows, cfg.corr_queries_per_voxel, cfg.corr_overflow_rows)
     torch.cuda.synchronize()
     launches = cuda_lib.launches()["fused_semantic_nn"]
-    tgt_ref, acc_ref = hm.get_correspondences(odom.state.map, query, valid, cfg.voxel_size_map, 1.5,
+    tgt_ref, acc_ref, _ = hm.get_correspondences(odom.state.map, query, valid, cfg.voxel_size_map, 1.5,
                                               cfg.sem_th, cfg.probe_depth)
     n_acc = int(acc_ref.sum())
     mismatch = int((acc != acc_ref).sum())

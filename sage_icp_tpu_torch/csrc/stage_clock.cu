@@ -26,13 +26,20 @@
 //   31 corr_found_pairs  the found (row, neighbour) pairs of the frame's row
 //                        builds so far, written by the stamps that close the
 //                        prepare and reanchor pieces; 0 on the reference path
+//   32 search            the reference path's searches' summed device time, ns
+//   33 search_sources, 34 search_pairs, 35 search_candidates
+//                        the frame's search counts so far (valid sources, found
+//                        (source, neighbour) pairs, their blocks' live points),
+//                        written by the stamp that ends each search; 0 on the
+//                        frozen-rows path
 //
 // Ops: BEGIN opens the frame and its first piece (the row zeroed); START
 // opens a piece; SPLIT ends a stage (slot) and starts the next inside a
 // piece; CLOSE ends a stage and the piece; END_FRAME does CLOSE and
-// advances the frame counter. SPLIT, CLOSE and END_FRAME copy *value, when
-// given, into the slot `into` (END_FRAME's: live_rows). The time between
-// pieces is in no slot: it is the device's idle time.
+// advances the frame counter. SPLIT, CLOSE and END_FRAME copy the value,
+// when given, into the slot `into` (END_FRAME's: live_rows): one int32,
+// or `wide` int64s into the slots from `into` on. The time between pieces
+// is in no slot: it is the device's idle time.
 //
 // What bounds it: one thread, a handful of 8-byte loads and stores; the
 // launch latency is the floor (a few microseconds a stamp).
@@ -46,7 +53,7 @@ namespace {
 
 constexpr int kSeq = 0, kFirst = 1, kLast = 2, kMark = 3, kRuns = 10, kRun0 = 11;
 constexpr int kMaxRuns = 8;
-constexpr int kSlots = kRun0 + 2 * kMaxRuns + 5;
+constexpr int kSlots = kRun0 + 2 * kMaxRuns + 9;
 constexpr int kBegin = 0, kStart = 1, kSplit = 2, kClose = 3, kEndFrame = 4;
 
 __device__ __forceinline__ long long global_ns() {
@@ -56,7 +63,7 @@ __device__ __forceinline__ long long global_ns() {
 }
 
 __global__ void stage_clock_kernel(long long* __restrict__ ring, long long* __restrict__ frame, int capacity,
-                                   int op, int slot, const int32_t* __restrict__ value, int into,
+                                   int op, int slot, const void* __restrict__ value, int into, int wide,
                                    unsigned long long* __restrict__ launches) {
   sage::count_launch(launches);
   const long long t = global_ns();
@@ -80,7 +87,13 @@ __global__ void stage_clock_kernel(long long* __restrict__ ring, long long* __re
   row[slot] += t - row[kMark];
   row[kMark] = t;
   row[kLast] = t;
-  if (value != nullptr) row[into] = *value;
+  if (value != nullptr) {
+    if (wide == 0) {
+      row[into] = *(const int32_t*)value;
+    } else {
+      for (int k = 0; k < wide; ++k) row[into + k] = ((const long long*)value)[k];
+    }
+  }
   if (op == kSplit) return;
   row[kRun0 + 2 * (n < kMaxRuns ? n : kMaxRuns) - 1] = t;
   if (op == kEndFrame) *frame = seq + 1;
@@ -88,13 +101,13 @@ __global__ void stage_clock_kernel(long long* __restrict__ ring, long long* __re
 
 }  // namespace
 
-// ring: (capacity, 32) int64 rows; frame: one int64, the frame counter;
-// slot: the stage of SPLIT / CLOSE / END_FRAME; value: one int32 or null,
-// copied into the slot `into`. All device pointers. One launch of one
-// thread.
+// ring: (capacity, 36) int64 rows; frame: one int64, the frame counter;
+// slot: the stage of SPLIT / CLOSE / END_FRAME; value: null, one int32
+// (wide 0) or `wide` int64s, copied into the slots from `into` on. All
+// device pointers. One launch of one thread.
 extern "C" int sage_stage_clock(void* ring, void* frame, int capacity, int op, int slot, const void* value,
-                                int into, void* launches, void* stream) {
+                                int into, int wide, void* launches, void* stream) {
   stage_clock_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((long long*)ring, (long long*)frame, capacity, op, slot,
-                                                        (const int32_t*)value, into, (unsigned long long*)launches);
+                                                        value, into, wide, (unsigned long long*)launches);
   return (int)cudaGetLastError();
 }

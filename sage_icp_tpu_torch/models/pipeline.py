@@ -676,8 +676,10 @@ class DeviceStep:
     opens the frame and stamps the deskew (with its count of deskewed
     points), head, filter and downsample stages, its rest and every block
     and reanchor piece go to the icp stage (prepare's and each reanchor's
-    close stamp with the frame's found pairs so far), finish to the update
-    stage and, last, the frame's GN live-row count."""
+    close stamp with the frame's found pairs so far), each search of the
+    reference-shaped loop to the search stage (RefLoop's stamps, with its
+    search counts so far), finish to the update stage and, last, the
+    frame's GN live-row count."""
 
     def __init__(self, config: SageConfig, device=None, graph: bool = True, packed: bool = True, mesh=None,
                  shard_insert: bool = True, donate: bool = True):
@@ -743,7 +745,7 @@ class DeviceStep:
         self._prep = prep = prepare_icp_inputs(self.state, pts, valid, ts, cfg, self.mesh, clock.split)
         args = _icp_args(self.state.map, prep, cfg)
         if self.fast_params is None:
-            self._loop = reg.RefLoop(*args, cfg.max_icp_iterations, cfg.probe_depth, self.mesh)
+            self._loop = reg.RefLoop(*args, cfg.max_icp_iterations, cfg.probe_depth, self.mesh, clock.split)
         else:
             self._loop = reg.IcpLoop(*args, cfg.max_icp_iterations, cfg.probe_depth, self.fast_params,
                                      prep["tables"], self.mesh)

@@ -526,9 +526,12 @@ def neighbor_offsets(device=None) -> torch.Tensor:
 def get_correspondences(state: MapState, query, valid, voxel_size, max_correspondence_distance,
                         sem_th, probe_depth: int = DEFAULT_PROBE_DEPTH):
     """Reference-shaped semantic NN over the 27 neighbouring voxels.
-    query (N, 4) -> (target (N, 4), accept (N,)). Arg-min on the
-    sem_th-scaled squared distance (labels equal or either 0), acceptance
-    on the unweighted distance."""
+    query (N, 4) -> (target (N, 4), accept (N,), counts (3,)). Arg-min on
+    the sem_th-scaled squared distance (labels equal or either 0),
+    acceptance on the unweighted distance. counts, int64 on the device:
+    the valid sources, the (source, neighbour voxel) pairs of those whose
+    voxel is in the map, and the live points of those pairs' blocks (the
+    map's counts summed over the pairs)."""
     kmax = state.points_per_voxel
     v = trunc_div(query[:, :3], voxel_size)
     nb = v[:, None, :] + neighbor_offsets(query.device)[None]  # (N, 27, 3)
@@ -554,4 +557,6 @@ def get_correspondences(state: MapState, query, valid, voxel_size, max_correspon
     tgt = cand.reshape(N, -1, 4)[torch.arange(N, device=query.device), best]
     d2_true = d2.reshape(N, -1)[torch.arange(N, device=query.device), best]
     accept = valid & any_cand & (torch.sqrt(d2_true) < max_correspondence_distance)
-    return tgt, accept
+    pairs = found & valid[:, None]
+    return tgt, accept, torch.stack([valid.sum(dtype=torch.int64), pairs.sum(dtype=torch.int64),
+                                     torch.where(pairs, cnt, 0).sum(dtype=torch.int64)])

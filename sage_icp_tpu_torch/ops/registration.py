@@ -35,7 +35,11 @@ step kernel's reference mode (icp_kernel.icp_ref_step: the solve, the pose
 update and the exit test) and the source update by the step's increment,
 queued in blocks of REF_BLOCK_ITERATIONS with one status read a block. A
 stopped loop's step writes the identity as its increment, so the searches
-left in a block change nothing.
+left in a block change nothing. Given the step's stage clock, each search
+is the `search` stage between two stamps, and the stamp after it copies
+the loop's running search counts (`searched`: sources, found pairs,
+candidates, added for a running loop only) into the frame's row
+(runtime/tracing.py).
 
 Across the ranks of a mesh (parallel/sharding.py) each rank builds only
 its contiguous share of the frozen rows (corr_setup's `rows`: the query
@@ -278,16 +282,25 @@ class RefLoop:
     and the accepted count are all-gathered as one (n, 43) float32 buffer
     and added in rank order on the device, the same on every rank, so
     every rank takes the same step and reads the same status. Counts stay
-    exact in float32 (N < 2^24)."""
+    exact in float32 (N < 2^24).
+
+    stamp: the step's stage clock (tracing.StageClock.split). It ends the
+    `icp` stage before each search and the `search` stage after it, with
+    `searched` (int64 (3,): the valid sources, found (source, neighbour
+    voxel) pairs and their blocks' live points of the loop's searches so
+    far, hashmap.get_correspondences' counts added while the status on the
+    device is RUNNING, so a block's searches after the loop stopped count
+    nothing) copied into the frame's row. On a mesh each rank counts its
+    own share. Without a clock nothing is counted (`searched` is None)."""
 
     def __init__(self, map_state: hm.MapState, frame, valid, initial_guess, voxel_size,
                  max_correspondence_distance, kernel, sem_th, max_iterations: int, probe_depth: int,
-                 mesh=None):
+                 mesh=None, stamp=None):
         dev = frame.device
         if mesh is not None:
             lo, hi = mesh.row_range(frame.shape[0])
             frame, valid = frame[lo:hi], valid[lo:hi]
-        self.map_state, self.valid, self.mesh = map_state, valid, mesh
+        self.map_state, self.valid, self.mesh, self.stamp = map_state, valid, mesh, stamp
         self.voxel_size, self.sem_th, self.probe_depth = voxel_size, sem_th, probe_depth
         self.max_iterations = int(max_iterations)
         self.max_corr = device_scalar(max_correspondence_distance, torch.float32, dev)
@@ -300,6 +313,7 @@ class RefLoop:
         self.loop_i = torch.zeros((ik.LOOP_I,), dtype=torch.int32, device=dev)
         if self.max_iterations <= 0:
             self.loop_i[ik.I_STATUS].fill_(ik.DONE)
+        self.searched = None if stamp is None else torch.zeros((3,), dtype=torch.int64, device=dev)
 
     def block(self) -> None:
         """REF_BLOCK_ITERATIONS iterations of the JAX loop body; once the
@@ -307,14 +321,26 @@ class RefLoop:
         increment and the source stays as it is."""
         f = self.loop_f
         for _ in range(REF_BLOCK_ITERATIONS):
-            tgt, accept = hm.get_correspondences(self.map_state, self.source, self.valid, self.voxel_size,
-                                                 self.max_corr, self.sem_th, self.probe_depth)
+            tgt, accept = self._search()
             JTJ, JTr = build_normal_equations(self.source, tgt, accept, self.kernel)
             ncorr = accept.sum(dtype=torch.int32)
             if self.mesh is not None:
                 JTJ, JTr, ncorr = self._summed(JTJ, JTr, ncorr)
             ik.icp_ref_step(JTJ, JTr, ncorr, f, self.loop_i, self.max_iterations)
             self.source.copy_(geo.transform_points(f[ik.F_EST].view(4, 4), self.source))
+
+    def _search(self):
+        """One search of the sources: (target, accept). With a clock it is
+        the `search` stage, and its counts are added to `searched` while
+        the loop runs."""
+        if self.stamp is not None:
+            self.stamp(tracing.ICP)
+        tgt, accept, counts = hm.get_correspondences(self.map_state, self.source, self.valid, self.voxel_size,
+                                                     self.max_corr, self.sem_th, self.probe_depth)
+        if self.stamp is not None:
+            self.searched.add_(counts * (self.loop_i[ik.I_STATUS] == ik.RUNNING))
+            self.stamp(tracing.SEARCH, self.searched, tracing.SEARCH_SOURCES)
+        return tgt, accept
 
     def _summed(self, JTJ, JTr, ncorr):
         """Every rank's terms and count, added in rank order."""

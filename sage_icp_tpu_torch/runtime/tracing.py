@@ -44,9 +44,12 @@ of its stages,
     downsample  voxelize
     icp         the rest of prepare (sigma, prediction, probe tables, the
                 rows at the guess, the first block) and every block and
-                reanchor piece
+                reanchor piece, less their searches
     update      finish: guard, insert, cull, state and totals
     deskew      scan_head's deskew (0 without config.deskew)
+    search      the reference-shaped loop's searches (registration.RefLoop:
+                hashmap.get_correspondences, each between two stamps); 0
+                on the frozen-rows path
 
 its first and last stamp, and the (start, end) of each piece (a graph
 replay or an eager piece). The time between pieces is in no stage: it is
@@ -66,9 +69,19 @@ stamp that closes prepare and each reanchor piece writes the frame's
 found pairs so far: the (row, neighbour) pairs whose neighbour voxel
 the row builds found in the map (correspondence_fast.candidate_planes,
 on the card csrc/corr_planes.cu, counts them on the device); 0 on the
-reference path. A stamp writes a count given to it (`value`) into its
-slot (`into`) as it stamps, so no count is read back while frames are
-stepped.
+reference path. The stamp that ends each search of the reference path
+writes the frame's three search counts so far, running totals over the
+searches of a running loop (gated on the loop's status on the device,
+so blocks of 1 and of 4 iterations count alike): the valid sources
+searched, the (source, neighbour voxel) pairs of them whose voxel is in
+the map, and the live points of those pairs' blocks (the map's counts
+summed over the found pairs). Each is defined by the sources, the map
+and the 27 offsets, whatever an implementation reads. They are int64:
+the candidates of a frame can pass 2^31. On a mesh each rank counts its
+own share of the sources. All three are 0 on the frozen-rows path. A
+stamp writes a count given to it (`value`: one int32, or a vector of
+int64s into the slots from `into` on) into its slot (`into`) as it
+stamps, so no count is read back while frames are stepped.
 
 Staging counts. SageICP.pad_chunk counts, on the host, the scan rows
 it stages and the staging buffers it makes (register_chunk's device
@@ -111,19 +124,23 @@ DIFFUSION_ROUNDS = VEHICLE_CELLS + 1
 DESKEW = DIFFUSION_ROUNDS + 1
 DESKEWED_POINTS = DESKEW + 1
 CORR_FOUND_PAIRS = DESKEWED_POINTS + 1
-SLOTS = CORR_FOUND_PAIRS + 1
-STAGES = {"head": HEAD, "filter": FILTER, "downsample": DOWNSAMPLE, "icp": ICP, "update": UPDATE, "deskew": DESKEW}
+SEARCH = CORR_FOUND_PAIRS + 1
+SEARCH_SOURCES, SEARCH_PAIRS, SEARCH_CANDIDATES = SEARCH + 1, SEARCH + 2, SEARCH + 3
+SLOTS = SEARCH_CANDIDATES + 1
+STAGES = {"head": HEAD, "filter": FILTER, "downsample": DOWNSAMPLE, "icp": ICP, "update": UPDATE, "deskew": DESKEW,
+          "search": SEARCH}
 BEGIN, START, SPLIT, CLOSE, END_FRAME = range(5)
 
-_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
 _profiling = torch._C._autograd._profiler_enabled
 
 
-def stamp_row(row: np.ndarray, op: int, slot: int, t: int, seq: int = 0, value: int | None = None,
+def stamp_row(row: np.ndarray, op: int, slot: int, t: int, seq: int = 0, value=None,
               into: int = LIVE_ROWS) -> None:
     """One stamp at time t on the row of frame `seq`: the kernel's
-    arithmetic (value: a count SPLIT, CLOSE or END_FRAME writes into the
-    slot `into`, END_FRAME's live rows by default)."""
+    arithmetic (value: a count, or a sequence of counts, that SPLIT, CLOSE
+    or END_FRAME writes into the slots from `into` on, END_FRAME's live
+    rows by default)."""
     if op == BEGIN:
         row[:] = 0
         row[SEQ] = seq
@@ -141,7 +158,8 @@ def stamp_row(row: np.ndarray, op: int, slot: int, t: int, seq: int = 0, value: 
     if op != SPLIT:
         row[PIECE0 + 2 * min(n, MAX_PIECES) - 1] = t
     if value is not None:
-        row[into] = value
+        values = np.atleast_1d(value)
+        row[into:into + len(values)] = values
 
 
 class Span(NamedTuple):
@@ -173,6 +191,9 @@ class FrameRecord:
     diffusion_rounds: int | None  # its min-diffusion's rounds that changed an id
     deskewed_points: int | None  # the scan's rows deskew moved (0 without deskew, and before the third pose)
     corr_found_pairs: int | None  # found (row, neighbour) pairs of the frame's row builds (0 on the reference path)
+    search_sources: int | None  # valid sources of the reference path's searches (0 on the frozen-rows path)
+    search_pairs: int | None  # their (source, neighbour voxel) pairs found in the map
+    search_candidates: int | None  # the live points of those pairs' blocks
     spans: list  # the frame's host spans
     staged_rows: int = 0  # scan rows SageICP.pad_chunk staged (a chunk's on its first frame)
     staging_buffers: int = 0  # staging buffers made for it (0 once the process is warm)
@@ -436,6 +457,9 @@ class Recorder:
                 diffusion_rounds=int(row[DIFFUSION_ROUNDS]) if n else None,
                 deskewed_points=int(row[DESKEWED_POINTS]) if n else None,
                 corr_found_pairs=int(row[CORR_FOUND_PAIRS]) if n else None,
+                search_sources=int(row[SEARCH_SOURCES]) if n else None,
+                search_pairs=int(row[SEARCH_PAIRS]) if n else None,
+                search_candidates=int(row[SEARCH_CANDIDATES]) if n else None,
                 spans=[s for s in by_frame.get(f.id, []) if s.drive == f.drive],
                 staged_rows=staged[1], staging_buffers=staged[2]))
         return Snapshot(records, spans)
@@ -448,8 +472,8 @@ class StageClock:
     closes the frame's last piece and copies its GN live-row count
     (`value`, a 0-dim int32 tensor). split and close also copy a count
     into the slot `into` when they are given one (the deskewed points, the
-    found pairs). Nothing is
-    read back. A stamp belongs to the frame this thread steps
+    found pairs: a 0-dim int32), or a vector of counts into the slots from
+    `into` on (the search counts: a 1-dim int64). Nothing is read back. A stamp belongs to the frame this thread steps
     (Recorder.begin_frame); outside one it raises."""
 
     def __init__(self, rec: Recorder, device: torch.device):
@@ -479,15 +503,21 @@ class StageClock:
         if ring is None:
             stamp_row(frame.row, op, slot, time.perf_counter_ns(), frame.seq)
             if value is not None:
-                frame.counts[into] = value.clone()
+                for k, c in enumerate(value.clone().reshape(-1)):
+                    frame.counts[into + k] = c
             return
         from sage_icp_tpu_torch.ops import cuda_lib
 
+        wide = 0  # the int64 counts at value; 0: one int32
         if value is not None:
-            cuda_lib.check_cuda("value", value, torch.int32, ())
+            if value.dtype == torch.int64:
+                wide = value.numel()
+                cuda_lib.check_cuda("value", value, torch.int64, (wide,))
+            else:
+                cuda_lib.check_cuda("value", value, torch.int32, ())
         fn = cuda_lib.function("stage_clock.cu", "sage_stage_clock", _ARGTYPES)
         cuda_lib.call("stage_clock", fn, ring.device, cuda_lib.ptr(ring.rows), cuda_lib.ptr(ring.counter),
-                      ring.rows.shape[0], op, slot, None if value is None else cuda_lib.ptr(value), into)
+                      ring.rows.shape[0], op, slot, None if value is None else cuda_lib.ptr(value), into, wide)
 
 
 RECORDER = Recorder()

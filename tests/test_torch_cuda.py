@@ -32,7 +32,8 @@ two ranks sharing the card over gloo equal to each other bit for bit and
 within 5e-4 of SageICP (tests/test_parallel.py's bound), two NCCL ranks
 on two cards, captured, equal to each other bit for bit and within 5e-3 m
 of SageICP; the reference step kernel bit for bit, and the reference
-loop's captured step equal to its eager one bit for bit; the poses
+loop's captured step equal to its eager one bit for bit, its search
+counts equal too; the poses
 stepped from the pinned staging buffer by register_frame without
 blocking and by register_chunk equal to those of register_frame with
 blocking bit for bit.
@@ -500,7 +501,7 @@ def test_icp_ref_step_kernel_matches_plain(card):
                       VOXEL, 8, torch.zeros(260, dtype=torch.bool, device=card))
     loop = treg.RefLoop(m, t(frame).to(card), torch.ones(len(frame), dtype=torch.bool, device=card),
                         torch.eye(4, device=card), VOXEL, MAX_CORR, KTH, SEM_TH, 500, 16)
-    tgt, accept = thm.get_correspondences(m, loop.source, loop.valid, VOXEL, loop.max_corr, SEM_TH, 16)
+    tgt, accept, _ = thm.get_correspondences(m, loop.source, loop.valid, VOXEL, loop.max_corr, SEM_TH, 16)
     JTJ, JTr = treg.build_normal_equations(loop.source, tgt, accept, loop.kernel)
     ncorr = accept.sum(dtype=torch.int32)
     cases = [(JTJ, JTr), (JTJ * float("nan"), JTr), (JTJ, JTr * 1e6)]
@@ -571,6 +572,67 @@ def test_reference_graph_step_equals_eager_on_card(card):
         np.testing.assert_array_equal(a, b)
     for a, b in zip(on.state.map, off.state.map):
         assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_reference_drive_stamps_each_search_on_card(card):
+    """The captured reference-shaped drive: every piece that runs an
+    iteration (prepare and each block) adds to the search stage and to
+    the search counts in the frame's row, read back after each piece;
+    the frames' counts equal the eager run's, their stages sum to their
+    pieces' time, and a stamp carries int64 counts past 2^31."""
+    pts, labs = synthetic.build_world(seed=1, length=80.0)
+    gt = synthetic.make_trajectory(6, step=1.0)
+    rng = np.random.default_rng(3)
+    scans = [synthetic.render_scan(pts, labs, gt[i], rng, n_target=14000) for i in range(6)]
+    cfg = tpl.SageConfig(**dict(GOLDEN_CONFIG, use_fast_correspondences=False))
+    real_piece, reads, counted = tpl.DeviceStep._piece, [], {}
+
+    def piece(self, name):
+        frame = tracing.RECORDER._local.stack.current
+        real_piece(self, name)
+        torch.cuda.synchronize()
+        reads.append((self.graph, name, frame.ring.rows[frame.seq % tracing.RECORDER.capacity].cpu().numpy().copy()))
+
+    tpl.DeviceStep._piece = piece
+    try:
+        for graph in (True, False):
+            odom = tpl.SageICP(cfg, graph=graph)
+            for s in scans:
+                odom.register_frame(s)
+            frames = tracing.RECORDER.read().frames_of([odom.drive])
+            assert len(frames) == len(scans) and all(f.stages_ns["search"] > 0 for f in frames)
+            for f in frames:
+                if f.pieces_run <= tracing.MAX_PIECES:
+                    assert f.device_ns == sum(b - a for a, b in f.pieces)
+            counted[graph] = [(f.search_sources, f.search_pairs, f.search_candidates) for f in frames]
+            assert all(c[0] > 0 for c in counted[graph]) and all(c[1] > 0 for c in counted[graph][1:])
+            if graph:
+                assert odom._step._graphs is not None
+    finally:
+        tpl.DeviceStep._piece = real_piece
+    assert counted[True] == counted[False]
+    before = None
+    for graph, name, row in reads:
+        if not graph:
+            break
+        if name == "prepare":
+            before = np.zeros_like(row)
+        if name in ("prepare", "block"):
+            assert row[tracing.SEARCH] > before[tracing.SEARCH], name
+            assert row[tracing.SEARCH_SOURCES] > before[tracing.SEARCH_SOURCES], name
+        before = row
+    rec = tracing.Recorder(frames=4)
+    clock = tracing.StageClock(rec, card)
+    big = [3 << 31, (1 << 40) + 7, (1 << 62) + 5]
+    rec.begin_frame(clock)
+    clock.begin()
+    clock.split(tracing.SEARCH, torch.tensor(big, dtype=torch.int64, device=card), tracing.SEARCH_SOURCES)
+    clock.end_frame(tracing.UPDATE)
+    rec.close_frame()
+    rec.end_frame()
+    (f,) = rec.read().frames
+    assert [f.search_sources, f.search_pairs, f.search_candidates] == big
 
 
 @pytest.mark.cuda

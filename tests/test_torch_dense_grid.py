@@ -267,7 +267,7 @@ def fast_both(mj, mt, q, valid, P, Q, OV):
     jt, ja = jax_fast(mj, jnp.asarray(q), jnp.asarray(valid), P=P, Q=Q, OV=OV)
     ft, fa = tcf.get_correspondences_fast(mt, tt, t(q), t(valid), VOXEL, 1.5, 0.4, 16, unique_voxel_rows=Q,
                                           queries_per_voxel=P, overflow_rows=OV)
-    rt, ra = thm.get_correspondences(mt, t(q), t(valid), VOXEL, 1.5, 0.4, 16)
+    rt, ra, _ = thm.get_correspondences(mt, t(q), t(valid), VOXEL, 1.5, 0.4, 16)
     np.testing.assert_array_equal(fa.numpy(), np.asarray(ja))
     np.testing.assert_allclose(ft.numpy()[fa.numpy()], np.asarray(jt)[fa.numpy()], atol=1e-6)
     np.testing.assert_array_equal(fa.numpy(), ra.numpy())

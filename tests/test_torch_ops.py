@@ -196,7 +196,7 @@ def test_fast_correspondences_match_reference_search(sem_th):
     tgt_f, acc_f = tcf.get_correspondences_fast(mt, tables, t(q), t(valid), VOXEL, 1.5, sem_th, PROBE,
                                                 unique_voxel_rows=512, queries_per_voxel=4,
                                                 overflow_rows=64)
-    tgt_r, acc_r = thm.get_correspondences(mt, t(q), t(valid), VOXEL, 1.5, sem_th, PROBE)
+    tgt_r, acc_r, _ = thm.get_correspondences(mt, t(q), t(valid), VOXEL, 1.5, sem_th, PROBE)
     eq(acc_r, acc_f)
     assert int(acc_r.sum()) > 100
     np.testing.assert_allclose(tgt_f[acc_r].numpy(), tgt_r[acc_r].numpy(), atol=1e-5)

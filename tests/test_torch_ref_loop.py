@@ -79,7 +79,7 @@ def test_plain_ref_step_matches_jax_loop_body(maps):
     exits = []
     for k in range(6):
         i[ik.I_STATUS] = ik.RUNNING
-        tgt, accept = thm.get_correspondences(mt, loop.source, loop.valid, 1.0, loop.max_corr, loop.sem_th,
+        tgt, accept, _ = thm.get_correspondences(mt, loop.source, loop.valid, 1.0, loop.max_corr, loop.sem_th,
                                               PROBE_DEPTH)
         JTJ, JTr = treg.build_normal_equations(loop.source, tgt, accept, loop.kernel)
         if k == 4:

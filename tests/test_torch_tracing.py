@@ -1,8 +1,9 @@
 """The recorder (sage_icp_tpu_torch/runtime/tracing.py): host spans and
 their nesting, the frames' records through SageICP, the stage clock's
 rows on the CPU, the profiler's view of the spans, the rings' bounds,
-the GN live-row and found-pair counters and the deskew stage with its
-count; on the card, the captured step's stamps. This file imports no JAX, so the
+the GN live-row and found-pair counters, the deskew stage with its
+count and the reference path's search stage with its three counts; on
+the card, the captured step's stamps. This file imports no JAX, so the
 card's test runs where only PyTorch is:
 
     python -m pytest tests/test_torch_tracing.py -m cuda -q --noconftest
@@ -22,6 +23,7 @@ from sage_icp_tpu_torch.ops import geometry as tgeo
 from sage_icp_tpu_torch.ops import hashmap as thm
 from sage_icp_tpu_torch.ops import icp_kernel as ik
 from sage_icp_tpu_torch.ops import registration as treg
+from sage_icp_tpu_torch.ops import scan as tscan
 from sage_icp_tpu_torch.runtime import tracing
 from sage_icp_tpu_torch.utils import synthetic
 
@@ -105,6 +107,8 @@ def test_one_record_a_frame_and_w_a_chunk(drive):
     for f, iters in zip(frames, odom.iteration_counts()):
         assert f.live_rows is not None and f.live_rows >= iters > 0
     assert frames[0].corr_found_pairs == 0 and all(f.corr_found_pairs > 0 for f in frames[1:])
+    for f in frames:  # the frozen-rows path runs no search
+        assert f.stages_ns["search"] == 0 and (f.search_sources, f.search_pairs, f.search_candidates) == (0, 0, 0)
 
 
 def test_every_stage_slot_is_present_and_in_order(drive):
@@ -238,6 +242,88 @@ def test_deskew_has_its_stage_and_counts_the_moved_rows():
         assert f.stages_ns["deskew"] > 0 and f.stages_ns["head"] > 0
         assert f.deskewed_points == (int(valid.sum()) if k >= 3 else 0)
     assert frames[3].deskewed_points > 0
+
+
+def plain_search_counts(state, query, valid, voxel_size, probe_depth) -> tuple:
+    """(valid sources, (source, neighbour voxel) pairs whose voxel is in
+    the map, the live points of those pairs' blocks), counted from the
+    sources, the map and hashmap.lookup."""
+    q = query[valid]
+    nb = tscan.trunc_div(q[:, :3], voxel_size)[:, None, :] + torch.tensor(thm.NEIGHBOR_OFFSETS)[None]
+    slots = thm.lookup(state, nb, probe_depth)
+    found = slots[slots >= 0].long()
+    return len(q), len(found), int(state.counts[found].sum())
+
+
+def reference_drive(scans, block: int, monkeypatch) -> tuple:
+    """A drive of the reference-shaped loop (use_fast_correspondences off)
+    through SageICP on the CPU in blocks of `block` iterations: (SageICP,
+    its stamps a frame, each frame's searches' plain counts in order)."""
+    monkeypatch.setattr(treg, "REF_BLOCK_ITERATIONS", block)
+    odom = tpl.SageICP(tpl.SageConfig(**TINY, use_fast_correspondences=False), device="cpu")
+    searches, real = {}, thm.get_correspondences
+
+    def search(state, query, valid, voxel_size, max_corr, sem_th, probe_depth, **kw):
+        frame = tracing.RECORDER._local.stack.current.id
+        searches.setdefault(frame, []).append(plain_search_counts(state, query, valid, voxel_size, probe_depth))
+        return real(state, query, valid, voxel_size, max_corr, sem_th, probe_depth, **kw)
+
+    monkeypatch.setattr(thm, "get_correspondences", search)
+    stamps = stamped(odom, scans)
+    monkeypatch.setattr(thm, "get_correspondences", real)
+    return odom, stamps, [searches[f] for f in sorted(searches)]
+
+
+def test_the_reference_path_records_its_searches(monkeypatch):
+    """Each search of the reference-shaped loop is the search stage between
+    a split of the icp stage and its own, and its stamp writes the frame's
+    counts so far: they equal a plain count of the frame's searches of a
+    running loop (the first `iterations` of them), frame by frame, in
+    blocks of 1 and of 4 alike; the stages sum to the pieces' time."""
+    scans = scans_of(4)
+    runs = {b: reference_drive(scans, b, monkeypatch) for b in (1, 4)}
+    snap = tracing.RECORDER.read()
+    counted = {}
+    for block, (odom, stamps, searches) in runs.items():
+        frames = snap.frames_of([odom.drive])
+        iters = odom.iteration_counts().tolist()
+        assert len(frames) == len(stamps) == len(searches) == len(scans) and max(iters) > 1
+        for n, (f, st, done, it) in enumerate(zip(frames, stamps, searches, iters)):
+            assert len(done) == block * -(-it // block)  # whole blocks, the first in prepare
+            k = [i for i, x in enumerate(st) if x == (tracing.SPLIT, tracing.SEARCH)]
+            assert len(k) == len(done) and all(st[i - 1] == (tracing.SPLIT, tracing.ICP) for i in k)
+            want = tuple(int(sum(c[j] for c in done[:it])) for j in range(3))
+            got = (f.search_sources, f.search_pairs, f.search_candidates)
+            assert got == want and want[0] == it * done[0][0] > 0
+            assert (0 < want[1] <= 27 * want[0] and want[2] >= want[1]) if n else want[1:] == (0, 0)  # empty map
+            assert f.stages_ns["search"] > 0 and f.stages_ns["icp"] > 0
+            assert f.corr_found_pairs == 0
+            if f.pieces_run <= tracing.MAX_PIECES:
+                assert f.device_ns == sum(b - a for a, b in f.pieces)
+        counted[block] = [(f.search_sources, f.search_pairs, f.search_candidates) for f in frames]
+    np.testing.assert_array_equal(runs[1][0].trajectory(), runs[4][0].trajectory())
+    assert counted[1] == counted[4]
+
+
+def test_search_counts_past_int32_reach_the_row():
+    """A frame's candidates can pass 2^31 (20,480 sources x 27 x 40 a
+    search, up to 500 searches): the counts are int64 from the loop's
+    running total to the row, on the host's rows and in stamp_row."""
+    big = [3 << 31, (1 << 40) + 7, (1 << 62) + 5]
+    rec = tracing.Recorder(frames=4)
+    clock = tracing.StageClock(rec, torch.device("cpu"))
+    rec.begin_frame(clock)
+    clock.begin()
+    clock.split(tracing.SEARCH, torch.tensor(big, dtype=torch.int64), tracing.SEARCH_SOURCES)
+    clock.end_frame(tracing.UPDATE)
+    rec.close_frame()
+    rec.end_frame()
+    (f,) = rec.read().frames
+    assert [f.search_sources, f.search_pairs, f.search_candidates] == big
+    row = np.zeros(tracing.SLOTS, dtype=np.int64)
+    tracing.stamp_row(row, tracing.SPLIT, tracing.SEARCH, 5, value=big, into=tracing.SEARCH_SOURCES)
+    assert row[tracing.SEARCH_SOURCES:tracing.SEARCH_CANDIDATES + 1].tolist() == big
+    assert tracing.SEARCH_CANDIDATES == tracing.SLOTS - 1
 
 
 def test_a_step_that_raises_leaves_the_next_frame_its_own_row(monkeypatch):
